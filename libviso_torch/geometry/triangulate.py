@@ -1,0 +1,18 @@
+"""Rectified-stereo triangulation (port of
+``libviso_tpu/geometry/triangulate.py::triangulate_rectified``)."""
+
+from __future__ import annotations
+
+import torch
+
+
+def triangulate_rectified(x, f, base, cu, cv, min_disparity=1e-4):
+    """(..., N, 4) observations (u_l, v_l, u_r, v_r) -> (..., N, 3) points
+    in the left camera: X = (u_l - cu) b / d, Y = (v_l - cv) b / d,
+    Z = f b / d, with the disparity d clamped at ``min_disparity`` so
+    padded slots stay finite."""
+    d = torch.clamp(x[..., 0] - x[..., 2], min=min_disparity)
+    X = (x[..., 0] - cu) * base / d
+    Y = (x[..., 1] - cv) * base / d
+    Z = f * base / d
+    return torch.stack([X, Y, Z], dim=-1)

@@ -1,0 +1,256 @@
+#!/usr/bin/env python3
+"""Where the PyTorch port's frame time goes, on one CUDA card.
+
+  python3 tools/profile_torch_step.py [--repeats 4] [--out FILE.json]
+
+Runs from the repository root, on the KITTI-size synthetic sequence of
+chip_smoke.py (20 frames of 1241x376, default detector and RANSAC, seed 0),
+and measures inside one process:
+
+  1. frames/s over frames 2-19 for three variants, after a warm-up and in
+     alternating order (A B C, C B A, ...): metric l1 through the CUDA
+     kernel; metric l1 with the kernel's plain PyTorch version run on the
+     card instead (an ablation that only this script makes, to show what
+     the kernel is worth end to end); and metric l2;
+  2. per-stage host times (upload + front-end, match, solve), with a sync
+     after each stage, for l1 and l2;
+  3. a torch.profiler trace of frames 10-14 of an l1 and an l2 run: the
+     device's busy share, and per frame the kernel launches, host syncs,
+     host-to-device copies and the largest device kernels.
+
+Everything is printed; ``--out`` also writes it as JSON.
+"""
+
+import argparse
+import contextlib
+import json
+import os
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from libviso_torch.config import Calib, PipelineConfig  # noqa: E402
+from libviso_torch.geometry.mvg import F_from_P_host  # noqa: E402
+from libviso_torch.ops import cuda_matching, matching  # noqa: E402
+from libviso_torch.pipeline.stereo import (  # noqa: E402
+    build_frontend,
+    build_prepare,
+    build_solve,
+    check_supported,
+    empty_state,
+    run_stereo_sequence,
+)
+from libviso_torch.solvers.ransac import (  # noqa: E402
+    frame_generator,
+    sample_gumbel,
+)
+from libviso_torch.synthetic import generate_sequence  # noqa: E402
+
+KITTI_SEQUENCE = dict(num_frames=20, num_points=900, seed=0, width=1241,
+                      height=376, f=718.856, base=0.5371657, speed=0.8)
+PROFILED = range(10, 15)   # frames inside the torch.profiler window
+VARIANTS = ("l1", "l1-plain", "l2")
+
+
+@contextlib.contextmanager
+def plain_l1_on_device():
+    """Route metric l1 through the plain version on any device (the
+    ablation of variant 'l1-plain')."""
+    kernel = matching.l1_distance_matrix
+    matching.l1_distance_matrix = cuda_matching.l1_distance_matrix_plain
+    try:
+        yield
+    finally:
+        matching.l1_distance_matrix = kernel
+
+
+def sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def frame_rate(seq, variant, device):
+    """Frames/s over frames 2..T-1 and the per-frame times [ms]."""
+    ends = []
+
+    def on_frame(t, out):
+        sync(device)
+        ends.append(time.perf_counter())
+
+    cfg = PipelineConfig().with_metric(variant[:2])
+    ctx = plain_l1_on_device() if variant == "l1-plain" \
+        else contextlib.nullcontext()
+    with ctx:
+        res = run_stereo_sequence(seq.frames, seq.P1, seq.P2, cfg, seed=0,
+                                  device=device, on_frame=on_frame)
+    frame_ms = [1e3 * (b - a) for a, b in zip(ends[1:], ends[2:])]
+    return {"fps": (len(ends) - 2) / (ends[-1] - ends[1]),
+            "median_frame_ms": statistics.median(frame_ms),
+            "solved": int(res.frame_ok.sum())}
+
+
+def stage_times(seq, metric, device):
+    """Mean per-stage host times [ms] over frames 2..T-1, a sync after
+    each stage (the step of run_stereo_sequence, cut at its stages)."""
+    cfg = PipelineConfig().with_metric(metric)
+    check_supported(cfg)
+    calib = Calib.from_projections(seq.P1, seq.P2)
+    F = torch.as_tensor(F_from_P_host(seq.P1, seq.P2), dtype=torch.float32,
+                        device=device)
+    frontend = build_frontend(cfg)
+    prepare = build_prepare(calib, F, cfg)
+    solve = build_solve(calib, cfg)
+    shape = (cfg.ransac.num_hypotheses, cfg.detector.num_slots)
+    state = empty_state(cfg, device)
+
+    def clock():
+        sync(device)
+        return time.perf_counter()
+
+    rows = []
+    for t, (im1, im2) in enumerate(seq.frames):
+        t0 = clock()
+        im1 = torch.tensor(np.asarray(im1), device=device)
+        im2 = torch.tensor(np.asarray(im2), device=device)
+        gumbel = sample_gumbel(shape, frame_generator(0, t)).to(device)
+        feats = frontend(im1, im2)
+        t1 = clock()
+        state, si, _ = prepare(feats, state)
+        t2 = clock()
+        solve(si, gumbel)
+        t3 = clock()
+        rows.append((t1 - t0, t2 - t1, t3 - t2, t3 - t0))
+    mean = np.mean(np.asarray(rows[2:]), axis=0) * 1e3
+    return dict(zip(("front_end_ms", "match_ms", "solve_ms", "frame_ms"),
+                    (float(x) for x in mean)))
+
+
+def _busy_us(intervals):
+    """Length of the union of (start, end) intervals."""
+    total, end = 0.0, -np.inf
+    for a, b in sorted(intervals):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total
+
+
+def profile_frames(seq, metric, device):
+    """torch.profiler over frames PROFILED of one run: the device busy
+    share and per-frame counts, read from the exported trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    window = {}
+
+    def on_frame(t, out):
+        if t == PROFILED.start - 1:
+            sync(device)
+            prof.start()
+            window["t0"] = time.perf_counter()
+        elif t == PROFILED.stop - 1:
+            sync(device)
+            window["t1"] = time.perf_counter()
+            prof.stop()
+
+    run_stereo_sequence(seq.frames, seq.P1, seq.P2,
+                        PipelineConfig().with_metric(metric), seed=0,
+                        device=device, on_frame=on_frame)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            events = json.load(fh)["traceEvents"]
+    events = [e for e in events if e.get("ph") == "X"]
+    n = len(PROFILED)
+    wall_us = 1e6 * (window["t1"] - window["t0"])
+    device_ev = [e for e in events
+                 if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    kernels = [e for e in device_ev if e["cat"] == "kernel"]
+    runtime = [e["name"] for e in events
+               if e.get("cat") in ("cuda_runtime", "cuda_driver")]
+    by_kernel = {}
+    for e in kernels:
+        c, us = by_kernel.get(e["name"], (0, 0.0))
+        by_kernel[e["name"]] = (c + 1, us + e["dur"])
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:6]
+    return {
+        "frames": [PROFILED.start, PROFILED.stop - 1],
+        "wall_ms_per_frame": wall_us / 1e3 / n,
+        "device_busy_share": _busy_us(
+            (e["ts"], e["ts"] + e["dur"]) for e in device_ev) / wall_us,
+        "kernel_launches_per_frame": len(kernels) / n,
+        "stream_syncs_per_frame": runtime.count("cudaStreamSynchronize") / n,
+        "device_syncs_per_frame": runtime.count("cudaDeviceSynchronize") / n,
+        "h2d_copies_per_frame": sum(
+            e["cat"] == "gpu_memcpy" and "HtoD" in e["name"]
+            for e in device_ev) / n,
+        "top_kernels_ms_per_frame": [
+            {"name": name[:80], "launches": c / n, "ms": us / 1e3 / n}
+            for name, (c, us) in top],
+    }
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--repeats", type=int, default=4,
+                    help="rounds of the frame-rate comparison")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--out", help="also write the results here as JSON")
+    args = ap.parse_args()
+    device = torch.device(args.device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    result = {"torch": torch.__version__, "cpu_count": os.cpu_count(),
+              "loadavg_at_start": os.getloadavg()}
+    if device.type == "cuda":
+        result["card"] = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip().splitlines()[0]
+        print(result["card"])
+    seq = generate_sequence(**KITTI_SEQUENCE)
+
+    for variant in VARIANTS:   # warm-up: kernel build, allocator, caches
+        frame_rate(seq, variant, device)
+    runs = {v: [] for v in VARIANTS}
+    for r in range(args.repeats):
+        for variant in VARIANTS[::1 if r % 2 == 0 else -1]:
+            before = cuda_matching.launches
+            row = frame_rate(seq, variant, device)
+            row["kernel_launches"] = cuda_matching.launches - before
+            runs[variant].append(row)
+            print(f"[fps] round {r} {variant}: {json.dumps(row)}")
+    result["frame_rate"] = runs
+    for variant, rows in runs.items():
+        print(f"[fps] {variant}: median {statistics.median(x['fps'] for x in rows)}"
+              f" frames/s over {len(rows)} runs")
+
+    result["stages"] = {}
+    result["profile"] = {}
+    for metric in ("l1", "l2"):
+        result["stages"][metric] = stage_times(seq, metric, device)
+        print(f"[stages] {metric}: {json.dumps(result['stages'][metric])}")
+        result["profile"][metric] = profile_frames(seq, metric, device)
+        print(f"[profile] {metric}: {json.dumps(result['profile'][metric])}")
+    result["loadavg_at_end"] = os.getloadavg()
+
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as fh:
+            json.dump(result, fh, indent=1)
+
+
+if __name__ == "__main__":
+    main()
