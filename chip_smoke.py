@@ -8,14 +8,29 @@ Phases, each of which exits non-zero on failure:
   2. build: the CUDA kernels are compiled from libviso_torch/csrc;
   3. kernel against plain: the L1 kernel equals its plain PyTorch version
      bitwise on integer-valued descriptors and within rtol 1e-5 on random
-     floats, at the main path's shape and at a ragged one, and both are
-     timed with CUDA events;
+     floats, at the main path's shape, the serving step's and a ragged one,
+     and both are timed with CUDA events;
   4. main path: run_stereo_sequence on a KITTI-size synthetic sequence
      with metric l1 solves 19 of 20 frames through the kernel (one launch
      a frame) within the ATE bound of the JAX package's run;
   5. card against CPU: the first 4 frames give the same per-frame results
      on the card as through the port's plain versions on the CPU;
-  6. entry point: `python -m libviso_torch.cli synth --metric l1` runs.
+  6. entry point: `python -m libviso_torch.cli synth --metric l1` runs;
+  7. fused kernels against plain: the fused gated matcher and its sweep
+     variant, and the L1 kernel, equal their plain versions bitwise (best,
+     second, idx; distances) on the detector output of KITTI-size frames,
+     the 3 match problems of one stream and the 12 of four, and the fused
+     kernels within rtol 1e-5 on float descriptors; every row where the
+     sweep's idx differs from the dense route's is an exact distance tie;
+     kernels, plain version and the matcher routes are timed with CUDA
+     events;
+  8. serving: run_multistream on 4 KITTI-size streams (lengths 20, 20, 16,
+     12) under metric l1 with each matcher backend: every stream's
+     discrete per-frame stats equal its solo run on the card, fused equals
+     dense, the backend's kernel launches once per timestep, and the
+     20-frame streams solve 19/19 within the phase-4 ATE bound; a 2-slot
+     StreamPool gives each sequence its solo result; where PIL imports,
+     `cli serve --pool 2` runs on a mini KITTI tree.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -26,6 +41,8 @@ import os
 import subprocess
 import sys
 import time
+
+import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -42,10 +59,17 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 #       PipelineConfig().with_metric('l1'), seed=0)
 #   print(ate_rmse(r.poses, s.gt_poses))"
 JAX_ATE_M = 0.04638402909040451
+ATE_BOUND = max(1.5 * JAX_ATE_M, JAX_ATE_M + 0.02)
 KITTI_SEQUENCE = dict(num_frames=20, num_points=900, seed=0, width=1241,
                       height=376, f=718.856, base=0.5371657, speed=0.8)
 MAIN_SHAPE = (3, 1280, 128)   # a frame's three match problems
+SERVE_SHAPE = (12, 1280, 128)  # a 4-stream serving step's twelve
 KEYS = ("ok", "num_lr", "num_circle", "num_inliers")
+STATS = ("frame", "ok", "num_kp1", "num_lr", "num_circle", "num_inliers")
+SERVE_LENGTHS = (20, 20, 16, 12)   # streams of seeds 0..3
+BACKEND_KERNEL = {"dense": "l1_distance_matrix",
+                  "fused": "fused_gated_two_min",
+                  "sweep": "fused_sweep_two_min"}
 
 
 def check(cond, msg):
@@ -80,6 +104,22 @@ def build_phase():
             print(f"[build] ptxas: {line.strip()}")
 
 
+def reset_launches():
+    from libviso_torch.ops import cuda_matching as cm
+    from libviso_torch.ops import fused_matching as fm
+
+    cm.launches = 0
+    for k in fm.launches:
+        fm.launches[k] = 0
+
+
+def read_launches():
+    from libviso_torch.ops import cuda_matching as cm
+    from libviso_torch.ops import fused_matching as fm
+
+    return {"l1_distance_matrix": cm.launches, **fm.launches}
+
+
 def _time_ms(fn, reps=20):
     import torch
 
@@ -109,6 +149,7 @@ def kernel_phase():
     max_err = 0.0
     cases = [("main, integer", MAIN_SHAPE, MAIN_SHAPE, True),
              ("main, float", MAIN_SHAPE, MAIN_SHAPE, False),
+             ("serving, integer", SERVE_SHAPE, SERVE_SHAPE, True),
              ("ragged, float", (2, 1000, 128), (2, 777, 128), False)]
     for label, s1, s2, integer in cases:
         a, b = make(s1, integer), make(s2, integer)
@@ -144,7 +185,6 @@ def main_path_phase(seq):
     import torch
 
     from libviso_torch.config import PipelineConfig
-    from libviso_torch.ops import cuda_matching as cm
     from libviso_torch.pipeline.stereo import run_stereo_sequence
     from libviso_torch.utils.metrics import ate_rmse
 
@@ -158,12 +198,11 @@ def main_path_phase(seq):
             ends.append(time.perf_counter())
 
         cfg = PipelineConfig().with_metric(metric)
-        if metric == "l1":
-            cm.launches = 0
+        reset_launches()
         res = run_stereo_sequence(seq.frames, seq.P1, seq.P2, cfg, seed=0,
                                   device="cuda", on_frame=on_frame)
         if metric == "l1":
-            launches = cm.launches
+            launches = read_launches()["l1_distance_matrix"]
         solved = int(res.frame_ok.sum())
         ate = ate_rmse(res.poses, seq.gt_poses)
         # frames 2..19: from the end of frame 1 to the end of frame 19
@@ -171,13 +210,12 @@ def main_path_phase(seq):
         print(f"[main] metric {metric}: solved {solved}/{len(ends)}, "
               f"ATE {ate} m, {fps[metric]:.2f} frames/s over frames 2-19")
         if metric == "l1":
-            bound = max(1.5 * JAX_ATE_M, JAX_ATE_M + 0.02)
             check(solved == 19, f"solved {solved} of 20 frames, not 19")
             check(launches == len(seq.frames),
                   f"kernel launched {launches} times for "
                   f"{len(seq.frames)} frames")
-            check(ate <= bound, f"ATE {ate} m above the bound {bound} m "
-                  f"(JAX {JAX_ATE_M} m)")
+            check(ate <= ATE_BOUND, f"ATE {ate} m above the bound "
+                  f"{ATE_BOUND} m (JAX {JAX_ATE_M} m)")
     return launches, fps
 
 
@@ -216,6 +254,303 @@ def entry_point_phase():
     print(f"[cli] {' '.join(cmd[2:])}: {json.dumps(out)}")
 
 
+def _serve_sequences(seq0):
+    """The serving streams: the phase-4 sequence (seed 0) and seeds 1-3 of
+    the same KITTI-size generator, of lengths SERVE_LENGTHS."""
+    from libviso_torch.synthetic import generate_sequence
+
+    return [seq0] + [generate_sequence(**{**KITTI_SEQUENCE, "seed": s,
+                                          "num_frames": n})
+                     for s, n in enumerate(SERVE_LENGTHS) if s > 0]
+
+
+def _match_problems(seqs, S, integer):
+    """The match problems of frame 1 of the first S streams, as
+    match_frame_triple stacks them: detector output, per-stream F, Sampson
+    gate on the stereo problem.  With ``integer`` the frames are first
+    rounded to uint8, as KITTI's PNGs are, so the descriptors (a Sobel
+    patch) are integers; else they are floats."""
+    import torch
+
+    from libviso_torch.config import PipelineConfig
+    from libviso_torch.geometry.mvg import F_from_P_host
+    from libviso_torch.pipeline.stereo import build_frontend
+
+    cfg = PipelineConfig().with_metric("l1")
+    frontend = build_frontend(cfg)
+    feats = []
+    def image(im):
+        im = np.asarray(im)
+        if integer:
+            im = np.clip(np.round(im), 0, 255).astype(np.uint8)
+        return torch.tensor(im[None], device="cuda")
+
+    for t in (0, 1):
+        ims = [image(sq.frames[t][v]) for sq in seqs[:S] for v in (0, 1)]
+        feats.append(frontend(torch.cat(ims[0::2]), torch.cat(ims[1::2])))
+    prev, cur = feats
+
+    def stack(a, b, c):
+        return torch.stack([a, b, c], 1).flatten(0, 1).contiguous()
+
+    F = torch.as_tensor(np.stack([F_from_P_host(sq.P1, sq.P2)
+                                  for sq in seqs[:S]]), dtype=torch.float32,
+                        device="cuda")
+    return dict(
+        q_xy=stack(cur.kp1.xy, cur.kp1.xy, cur.kp2.xy),
+        q_valid=stack(cur.kp1.valid, cur.kp1.valid, cur.kp2.valid),
+        q_d=stack(cur.d1, cur.d1, cur.d2),
+        t_xy=stack(cur.kp2.xy, prev.kp1.xy, prev.kp2.xy),
+        t_valid=stack(cur.kp2.valid, prev.kp1.valid, prev.kp2.valid),
+        t_d=stack(cur.d2, prev.d1, prev.d2),
+        F=F[:, None].expand(S, 3, 3, 3).reshape(3 * S, 3, 3).contiguous(),
+        use_epi=torch.tensor([True, False, False], device="cuda").repeat(S))
+
+
+def fused_kernel_phase(seqs):
+    """Kernels #2 and #3 against their plain version; returns, per kernel,
+    the max abs error and the (ms, plain ms) at the serving shape."""
+    import torch
+
+    from libviso_torch.ops import cuda_matching as cm
+    from libviso_torch.ops import fused_matching as fm
+    from libviso_torch.ops import matching as mt
+
+    radius, thresh = 80.0, 1.0
+    max_err = {"fused_gated_two_min": 0.0, "fused_sweep_two_min": 0.0}
+    times = {}
+    for S in (1, 4):
+        pb = _match_problems(seqs, S, integer=True)
+        args = list(pb.values())
+        shape = tuple(pb["q_d"].shape)
+        ref = fm.fused_gated_two_min_plain(*args, thresh, radius)
+        sref = fm.sorted_fused_two_min(*args, thresh, radius,
+                                       sweep=fm.fused_sweep_two_min_plain)
+        before = read_launches()
+        got = fm.fused_gated_two_min(*args, thresh, radius)
+        sgot = fm.sorted_fused_two_min(*args, thresh, radius)
+        torch.cuda.synchronize()
+        after = read_launches()
+        for name in max_err:
+            check(after[name] == before[name] + 1,
+                  f"{name}: {after[name] - before[name]} launches for 1 call")
+        for name, a, b in (("fused_gated_two_min", got, ref),
+                           ("fused_sweep_two_min", sgot, sref)):
+            check(all(torch.equal(x, y) for x, y in zip(a, b)),
+                  f"{name} {shape}: kernel != plain bitwise on detector "
+                  f"output")
+        # the dense route's kernel on the same problems
+        l1 = cm.l1_distance_matrix(pb["q_d"], pb["t_d"])
+        check(torch.equal(l1, cm.l1_distance_matrix_plain(pb["q_d"],
+                                                          pb["t_d"])),
+              f"l1_distance_matrix {shape}: kernel != plain bitwise on "
+              f"detector output")
+        # every row where the sweep picks another target than the dense
+        # route is an exact distance tie
+        dd = torch.where(
+            fm.gate(pb["q_xy"], pb["q_valid"], pb["t_xy"], pb["t_valid"],
+                    pb["F"], pb["use_epi"], thresh, radius),
+            l1, torch.tensor(fm.BIG, device="cuda"))
+        differ = (sgot[2] != got[2]).nonzero()
+        b, r = differ.unbind(1)
+        check(torch.equal(dd[b, r, sgot[2][b, r].long()],
+                          dd[b, r, got[2][b, r].long()]),
+              "a row where the sweep's idx differs from dense's is not an "
+              "exact distance tie")
+        check(torch.equal(sgot[0], got[0]), "sweep best != dense best")
+        # the sweep's box test on the sorted slots
+        srt, _, _ = fm.sort_slots(*args[:6])
+        rows, cols = fm.tiling()
+        qbox = fm.sweep_boxes(srt[0], srt[1], rows)
+        tbox = fm.sweep_boxes(srt[3], srt[4], cols)
+        live = fm.sweep_live_tiles(qbox, tbox, radius)
+        total = qbox.shape[-1] * tbox.shape[-1] * 3 * S
+        skip = 1.0 - float(live.sum()) / total
+        print(f"[fused] {shape}: gated, sweep and l1_distance_matrix == "
+              f"plain bitwise on detector output of uint8 frames (integer "
+              f"descriptors); "
+              f"{differ.shape[0]} sweep rows differ from "
+              f"dense, all exact ties; sweep computes {int(live.sum())} of "
+              f"{total} (block, tile) pairs, skip share {skip:.4f}")
+        # the float frames' detector output: sums in another order than
+        # the plain version's, so best and second agree within rtol 1e-5
+        # and idx wherever the two smallest are not within that of a tie
+        fl = _match_problems(seqs, S, integer=False)
+        fargs = list(fl.values())
+        fref = fm.fused_gated_two_min_plain(*fargs, thresh, radius)
+        for name, fn in (("fused_gated_two_min", fm.fused_gated_two_min),
+                         ("fused_sweep_two_min", fm.sorted_fused_two_min)):
+            out = fn(*fargs, thresh, radius)
+            err = 0.0
+            for x, y in zip(out[:2], fref[:2]):
+                has = torch.isfinite(y)
+                check(torch.equal(has, torch.isfinite(x)),
+                      f"{name} {shape} float: rows with candidates differ")
+                err = max(err, float((x[has] - y[has]).abs().max()))
+                check(torch.allclose(x[has], y[has], rtol=1e-5, atol=0.0),
+                      f"{name} {shape} float: beyond rtol 1e-5 ({err})")
+            clear = fref[1] - fref[0] > 1e-5 * fref[1]
+            check(torch.equal(out[2][clear], fref[2][clear]),
+                  f"{name} {shape} float: idx differs away from a tie")
+            max_err[name] = max(max_err[name], err)
+            print(f"[fused] {name} {shape} float descriptors: max abs err "
+                  f"{err}")
+        # times: kernels and plain in turns ("sweep" on sorted slots,
+        # with its boxes; "sorted sweep" also sorts and maps back), and the
+        # three matcher routes
+        fns = {
+            "plain": lambda: fm.fused_gated_two_min_plain(*args, thresh,
+                                                          radius),
+            "fused": lambda: fm.fused_gated_two_min(*args, thresh, radius),
+            "sweep": lambda: fm.fused_sweep_two_min(
+                *srt, pb["F"], pb["use_epi"], thresh, radius),
+            "sorted sweep": lambda: fm.sorted_fused_two_min(*args, thresh,
+                                                            radius),
+        }
+        for backend in ("dense", "fused", "sweep"):
+            fns[f"route {backend}"] = (
+                lambda b=backend: mt.match_problem_batch(
+                    *args[:6], pb["use_epi"], ~pb["use_epi"],
+                    torch.full((3 * S,), 0.9, device="cuda"), radius,
+                    thresh, "l1", pb["F"], backend=b))
+        for fn in fns.values():
+            fn()
+        torch.cuda.synchronize()
+        order = list(fns) + list(fns)[::-1]
+        ms = {k: [] for k in fns}
+        for k in order:
+            ms[k].append(_time_ms(fns[k], reps=10))
+        mean = {k: sum(v) / len(v) for k, v in ms.items()}
+        print(f"[fused] {shape} ms per call (two turns each): " + ", ".join(
+            f"{k} {mean[k]:.4f} ({v[0]:.4f}, {v[1]:.4f})"
+            for k, v in ms.items()))
+        times[S] = mean
+    return max_err, times
+
+
+def serving_phase(seqs):
+    """run_multistream on 4 KITTI-size streams under each backend; returns
+    the launches of each backend's kernel in its run and the frames/s."""
+    import torch
+
+    from libviso_torch.config import PipelineConfig
+    from libviso_torch.pipeline.multistream import StreamPool, run_multistream
+    from libviso_torch.pipeline.stereo import run_stereo_sequence
+    from libviso_torch.utils.metrics import ate_rmse
+
+    cfg = PipelineConfig().with_metric("l1")
+    args = ([sq.frames for sq in seqs], [sq.P1 for sq in seqs],
+            [sq.P2 for sq in seqs])
+    T = max(SERVE_LENGTHS)
+    stats, launches, fps = {}, {}, {}
+    for backend in ("dense", "fused", "sweep"):
+        solos = [run_stereo_sequence(sq.frames, sq.P1, sq.P2, cfg, seed=s,
+                                     device="cuda", backend=backend)
+                 for s, sq in enumerate(seqs)]
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        multi = run_multistream(*args, cfg, seeds=range(len(seqs)),
+                                device="cuda", backend=backend)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = read_launches()
+        name = BACKEND_KERNEL[backend]
+        launches[name] = counts[name]
+        check(counts[name] == T, f"{backend}: {name} launched "
+              f"{counts[name]} times in {T} timesteps")
+        fps[backend] = sum(SERVE_LENGTHS) / dt
+        for s, (solo, got) in enumerate(zip(solos, multi)):
+            check([{k: x[k] for k in STATS} for x in got.stats]
+                  == [{k: x[k] for k in STATS} for x in solo.stats],
+                  f"{backend}: stream {s} differs from its solo run")
+        stats[backend] = [[{k: x[k] for k in STATS} for x in r.stats]
+                          for r in multi]
+        ates = [ate_rmse(r.poses, sq.gt_poses) for r, sq in zip(multi, seqs)]
+        solved = [int(r.frame_ok.sum()) for r in multi]
+        for s, n in enumerate(SERVE_LENGTHS):
+            if n == 20:
+                check(solved[s] == 19 and ates[s] <= ATE_BOUND,
+                      f"{backend}: stream {s} solved {solved[s]}/19, ATE "
+                      f"{ates[s]} m (bound {ATE_BOUND} m)")
+        print(f"[serve] {backend}: 4 streams == solo runs on every discrete "
+              f"stat; {name} {counts[name]} launches in {T} timesteps; "
+              f"solved {solved}, ATE {ates}; {fps[backend]:.2f} aggregate "
+              f"frames/s ({sum(SERVE_LENGTHS)} frames in {dt:.3f} s)")
+    check(stats["fused"] == stats["dense"],
+          "fused and dense differ on a discrete per-frame stat")
+    print(f"[serve] fused == dense on every discrete stat; sweep == dense: "
+          f"{stats['sweep'] == stats['dense']}")
+
+    pool = StreamPool(cfg, slots=2, device="cuda", backend="fused")
+    queue = list(enumerate(seqs))
+    slot_seq, results = {}, {}
+    for slot in range(2):
+        s, sq = queue.pop(0)
+        pool.attach(slot, sq.frames, sq.P1, sq.P2, seed=s)
+        slot_seq[slot] = s
+    while pool.active() or pool.finished():
+        if pool.active():
+            pool.step()
+        for slot in pool.finished():
+            results[slot_seq.pop(slot)] = pool.detach(slot)
+            if queue:
+                s, sq = queue.pop(0)
+                pool.attach(slot, sq.frames, sq.P1, sq.P2, seed=s)
+                slot_seq[slot] = s
+    for s in range(len(seqs)):
+        check([{k: x[k] for k in STATS} for x in results[s].stats]
+              == stats["fused"][s], f"pool: sequence {s} differs from its "
+              "solo run")
+    print("[serve] StreamPool, 2 slots over 4 sequences: each equals its "
+          "solo run")
+    return launches, fps
+
+
+def serve_cli_phase():
+    """`cli serve --pool 2` on a mini KITTI tree, where PIL imports."""
+    try:
+        from PIL import Image
+    except ImportError:
+        print("[serve-cli] PIL does not import here: cli serve not run")
+        return
+    import shutil
+
+    from libviso_torch.synthetic import generate_sequence
+
+    home = os.path.join(ROOT, "build", "chip_smoke_kitti")
+    shutil.rmtree(home, ignore_errors=True)
+    for name, seed in (("77", 7), ("78", 8)):
+        seq = generate_sequence(num_frames=6, num_points=500, seed=seed,
+                                width=416, height=160)
+        base = os.path.join(home, "sequences", name)
+        for cam in ("image_0", "image_1"):
+            os.makedirs(os.path.join(base, cam))
+        with open(os.path.join(base, "calib.txt"), "w") as fh:
+            for row, P in (("P0", seq.P1), ("P1", seq.P2)):
+                fh.write(f"{row}: " + " ".join(f"{v:.9e}" for v in
+                                              P.reshape(-1)) + "\n")
+        for i, pair in enumerate(seq.frames):
+            for cam, im in zip(("image_0", "image_1"), pair):
+                Image.fromarray(im.astype(np.uint8)).save(
+                    os.path.join(base, cam, f"{i:06d}.png"))
+    cmd = [sys.executable, "-m", "libviso_torch.cli", "serve", "smoke",
+           "77,78", "--pool", "2", "--kitti-home", home, "--metric", "l1",
+           "--backend", "fused"]
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=600)
+    check(proc.returncode == 0,
+          f"{' '.join(cmd[1:])} exited {proc.returncode}:\n{proc.stderr}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    for sq in out["sequences"]:
+        rows = np.loadtxt(sq["poses"])
+        check(sq["solved"] == 5 and rows.shape == (6, 12),
+              f"cli serve: {sq}")
+    shutil.rmtree(home)
+    print(f"[serve-cli] cli serve --pool 2 --backend fused: "
+          f"{json.dumps(out)}")
+
+
 def main():
     name, count = device_phase()
     build_phase()
@@ -227,13 +562,30 @@ def main():
     launches, _ = main_path_phase(seq)
     card_vs_cpu_phase(seq)
     entry_point_phase()
+    seqs = _serve_sequences(seq)
+    fused_err, fused_times = fused_kernel_phase(seqs)
+    serve_launches, _ = serving_phase(seqs)
+    serve_cli_phase()
 
+    t12 = fused_times[4]
     print(json.dumps({"kernels": [{
         "name": "l1_distance_matrix", "route": "cuda",
         "source": "libviso_torch/csrc/l1_distance.cu",
         "replaces": "libviso_tpu/ops/pallas_matching.py:53",
         "launches": launches, "max_abs_err": max_err, "ms": ms,
-        "plain_ms": plain_ms}]}))
+        "plain_ms": plain_ms}, {
+        "name": "fused_gated_two_min", "route": "cuda",
+        "source": "libviso_torch/csrc/fused_two_min.cu",
+        "replaces": "libviso_tpu/ops/pallas_fused_match.py:214",
+        "launches": serve_launches["fused_gated_two_min"],
+        "max_abs_err": fused_err["fused_gated_two_min"],
+        "ms": t12["fused"], "plain_ms": t12["plain"]}, {
+        "name": "fused_sweep_two_min", "route": "cuda",
+        "source": "libviso_torch/csrc/fused_two_min.cu",
+        "replaces": "libviso_tpu/ops/pallas_fused_match.py:314",
+        "launches": serve_launches["fused_sweep_two_min"],
+        "max_abs_err": fused_err["fused_sweep_two_min"],
+        "ms": t12["sweep"], "plain_ms": t12["plain"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}))
 

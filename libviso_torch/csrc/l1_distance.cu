@@ -12,7 +12,8 @@
 // take it -- against about 20 MB of output and 2 MB of input.  The kernel
 // is compute-bound.
 //
-// What the tiling does about it: each block owns one 64x64 output tile of
+// What the tiling does about it (l1_tile.cuh, shared with the fused
+// matcher): each block owns one 64x64 output tile of
 // one problem and stages 64x32 slices of both descriptor tiles in shared
 // memory, so each descriptor value read from device memory feeds 64
 // accumulations.  Each of the 256 threads keeps a 4x4 register micro-tile,
@@ -26,39 +27,18 @@
 
 #include <cstddef>
 
+#include "l1_tile.cuh"
+
 namespace {
 
 constexpr int kTile = 64;            // output tile edge (rows and columns)
-constexpr int kSlice = 32;           // descriptor values staged per step
 constexpr int kThreads = 256;        // 16 x 16 threads, 4 x 4 outputs each
-constexpr int kPitch = kTile + 1;    // +1: conflict-free transposed stores
-
-// Copy rows [row0, row0 + 64) x values [d0, d0 + 32) of a (rows, D) matrix
-// into dst[value][row], zero outside the matrix.  D is a multiple of 4, so
-// a float4 never straddles a row end.
-__device__ __forceinline__ void stage(const float* __restrict__ src,
-                                      int rows, int D, int row0, int d0,
-                                      float (*dst)[kPitch]) {
-  for (int k = threadIdx.x; k < kTile * kSlice / 4; k += kThreads) {
-    const int r = k / (kSlice / 4);
-    const int c = (k % (kSlice / 4)) * 4;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < rows && d0 + c < D) {
-      v = *reinterpret_cast<const float4*>(
-          src + static_cast<size_t>(row0 + r) * D + d0 + c);
-    }
-    dst[c + 0][r] = v.x;
-    dst[c + 1][r] = v.y;
-    dst[c + 2][r] = v.z;
-    dst[c + 3][r] = v.w;
-  }
-}
 
 __global__ void __launch_bounds__(kThreads)
 l1_distance_kernel(const float* __restrict__ a, const float* __restrict__ b,
                    float* __restrict__ out, int N1, int N2, int D) {
-  __shared__ float as[kSlice][kPitch];
-  __shared__ float bs[kSlice][kPitch];
+  __shared__ float as[l1tile::kSlice][kTile + 1];
+  __shared__ float bs[l1tile::kSlice][kTile + 1];
 
   const int p = blockIdx.z;
   const int row0 = blockIdx.y * kTile;
@@ -70,25 +50,7 @@ l1_distance_kernel(const float* __restrict__ a, const float* __restrict__ b,
 
   // thread (ty, tx) owns rows ty + 16 i and columns tx + 16 j of the tile
   float acc[4][4] = {};
-  for (int d0 = 0; d0 < D; d0 += kSlice) {
-    stage(ap, N1, D, row0, d0, as);
-    stage(bp, N2, D, col0, d0, bs);
-    __syncthreads();
-#pragma unroll 8
-    for (int d = 0; d < kSlice; ++d) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = as[d][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = bs[d][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] += fabsf(av[i] - bv[j]);
-      }
-    }
-    __syncthreads();
-  }
+  l1tile::accumulate<16, 16>(ap, N1, bp, N2, D, row0, col0, as, bs, acc);
 
   float* op = out + static_cast<size_t>(p) * N1 * N2;
 #pragma unroll

@@ -10,9 +10,13 @@ def triangulate_rectified(x, f, base, cu, cv, min_disparity=1e-4):
     """(..., N, 4) observations (u_l, v_l, u_r, v_r) -> (..., N, 3) points
     in the left camera: X = (u_l - cu) b / d, Y = (v_l - cv) b / d,
     Z = f b / d, with the disparity d clamped at ``min_disparity`` so
-    padded slots stay finite."""
+    padded slots stay finite.  The calibration is Python floats or float32
+    tensors that broadcast against (..., N)."""
     d = torch.clamp(x[..., 0] - x[..., 2], min=min_disparity)
     X = (x[..., 0] - cu) * base / d
     Y = (x[..., 1] - cv) * base / d
-    Z = f * base / d
+    # with Python floats ``f * base / d`` runs as d.reciprocal() * (f *
+    # base); written out, a tensor calibration (one row per stream) rounds
+    # the same way
+    Z = d.reciprocal() * (f * base)
     return torch.stack([X, Y, Z], dim=-1)

@@ -1,9 +1,9 @@
 """Circular-consistency match filter (port of ``libviso_tpu/ops/circle.py``).
 
-A match list is an (N,) integer tensor over view-1 slots holding the
-matched view-2 slot or -1.  The loop left -> right -> right_prev ->
-left_prev -> left is a composition of these partial maps: three gathers
-and one equality test.
+A match list is an (..., N) integer tensor over view-1 slots holding the
+matched view-2 slot or -1; leading dims index independent streams.  The
+loop left -> right -> right_prev -> left_prev -> left is a composition of
+these partial maps: three gathers and one equality test.
 """
 
 from __future__ import annotations
@@ -14,17 +14,17 @@ import torch
 
 
 class CircleResult(NamedTuple):
-    valid: torch.Tensor       # (N,) bool over current-left slots
-    right: torch.Tensor       # (N,) current-right slot (match_lr)
-    left_prev: torch.Tensor   # (N,) previous-left slot (match11)
-    right_prev: torch.Tensor  # (N,) previous-right slot
-    count: torch.Tensor       # () number of circular matches
+    valid: torch.Tensor       # (..., N) bool over current-left slots
+    right: torch.Tensor       # (..., N) current-right slot (match_lr)
+    left_prev: torch.Tensor   # (..., N) previous-left slot (match11)
+    right_prev: torch.Tensor  # (..., N) previous-right slot
+    count: torch.Tensor       # (...) number of circular matches
 
 
 def _safe_gather(table, idx):
-    """table[idx] with -1 indices mapping to -1."""
-    safe = torch.clamp(idx, 0, table.shape[0] - 1)
-    return torch.where(idx >= 0, table[safe], -1)
+    """table[..., idx] with -1 indices mapping to -1."""
+    safe = torch.clamp(idx, 0, table.shape[-1] - 1)
+    return torch.where(idx >= 0, torch.gather(table, -1, safe), -1)
 
 
 def circle_filter(match_lr, match_lr_prev, match11, match22) -> CircleResult:
@@ -40,5 +40,5 @@ def circle_filter(match_lr, match_lr_prev, match11, match22) -> CircleResult:
         right=torch.where(valid, r, -1),
         left_prev=torch.where(valid, lp, -1),
         right_prev=torch.where(valid, rp, -1),
-        count=valid.sum(),
+        count=valid.sum(-1),
     )

@@ -1,15 +1,25 @@
-"""Dense gated descriptor matching (port of ``libviso_tpu/ops/matching.py``,
-dense path).
+"""Gated descriptor matching (port of ``libviso_tpu/ops/matching.py``).
 
 A keypoint in view 1 matches its minimum-distance neighbour among view-2
 keypoints within an L1 position radius, subject to the validity gate, the
 Sampson gate (<= thresh, non-finite rejected) and the ratio test
 (best < second * ratio); exact distance ties keep the first index.
 
-The descriptor distance is 'l2' (``torch.matmul`` on either device) or
-'l1'.  For 'l1' the device decides: a CUDA tensor runs the hand-written
-kernel (``ops/cuda_matching.py``), a CPU tensor its plain version.  The
-JAX package's ``backend`` choice is not carried over.
+``backend`` picks one of three routes, as the JAX package's ``backend``
+argument does:
+- ``"dense"`` (the default): the (N1, N2) distance matrix, then the gates
+  and ``two_smallest`` in PyTorch.  The distance is 'l2'
+  (``torch.matmul`` on either device) or 'l1', for which a CUDA tensor runs
+  the hand-written kernel (``ops/cuda_matching.py``) and a CPU tensor its
+  plain version.  It is the port's counterpart of both JAX values, "xla"
+  and "pallas".
+- ``"fused"``: gates, L1 distance and the row-wise (best, second,
+  argmin) as one fused kernel (``ops/fused_matching.py``), no (N1, N2)
+  array stored;
+- ``"sweep"``: the same on x-sorted slots, skipping target tiles beyond
+  the radius.  Among exactly equal distances the lowest x wins instead of
+  the lowest slot.
+The fused routes compute L1 only.
 """
 
 from __future__ import annotations
@@ -25,6 +35,12 @@ from libviso_torch.ops.cuda_matching import (
     l1_distance_matrix_plain,
 )
 from libviso_torch.ops.features import Keypoints
+from libviso_torch.ops.fused_matching import (
+    fused_gated_two_min,
+    sorted_fused_two_min,
+)
+
+BACKENDS = ("dense", "fused", "sweep")
 
 
 class MatchResult(NamedTuple):
@@ -45,6 +61,17 @@ def check_match_supported(cfg: MatchConfig):
         raise NotImplementedError(f"metric 'l2q8' is not ported yet: {todo}")
     if cfg.metric not in ("l1", "l2"):
         raise ValueError(f"unknown metric {cfg.metric!r}")
+
+
+def check_backend(backend: str, metric: str):
+    """Raise for an unknown backend, or a fused one under metric 'l2'."""
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown matcher backend {backend!r}; expected "
+                         f"one of {BACKENDS}")
+    if backend != "dense" and metric != "l1":
+        raise ValueError(
+            f"backend {backend!r} runs the fused matcher kernels, which "
+            f"compute L1 only; metric {metric!r} needs backend 'dense'")
 
 
 # the plain all-pairs L1 distance, under the name of the JAX function it
@@ -79,6 +106,9 @@ def _gates(q_xy, q_valid, t_xy, t_valid, radius):
 
 
 def _epipolar_ok(F, q_xy, t_xy, sampson_thresh):
+    """(..., N1, N2) Sampson gate; F is (3, 3) or one per leading index."""
+    if F.dim() > 2:
+        F = F[..., None, :, :]
     s = sampson_distance(F, q_xy[..., :, None, :], t_xy[..., None, :, :])
     return torch.isfinite(s) & (s <= sampson_thresh)
 
@@ -118,23 +148,52 @@ def finalize_match(best, second, best_idx, kp1_valid,
         valid=valid)
 
 
+def _fused_two_min(backend, q_xy, q_valid, q_d, t_xy, t_valid, t_d, F,
+                  use_epi, sampson_thresh, radius):
+    """Row-wise gated (best, second, argmin) by a fused kernel, for inputs
+    with any leading dims: (..., N, ...) -> (..., N1) each.  ``F`` is
+    (3, 3) or one per leading index, ``use_epi`` a bool tensor that
+    broadcasts to the leading dims."""
+    lead = q_valid.shape[:-1]
+    N1, N2, D = q_valid.shape[-1], t_valid.shape[-1], q_d.shape[-1]
+    B = max(1, int(torch.Size(lead).numel()))
+    F = F.to(device=q_d.device, dtype=torch.float32)
+    fn = fused_gated_two_min if backend == "fused" else sorted_fused_two_min
+    best, second, idx = fn(
+        q_xy.reshape(B, N1, 2), q_valid.reshape(B, N1),
+        q_d.reshape(B, N1, D), t_xy.reshape(B, N2, 2),
+        t_valid.reshape(B, N2), t_d.reshape(B, N2, D),
+        F.expand(*lead, 3, 3).reshape(B, 3, 3).contiguous(),
+        use_epi.to(q_d.device).expand(lead).reshape(B).contiguous(),
+        sampson_thresh=sampson_thresh, radius=radius)
+    return (best.reshape(*lead, N1), second.reshape(*lead, N1),
+            idx.long().reshape(*lead, N1))
+
+
 def match_problem_batch(q_xy, q_valid, q_d, t_xy, t_valid, t_d,
                         use_epi, use_rat, ratios, radius, sampson_thresh,
-                        metric, F) -> MatchResult:
+                        metric, F, backend="dense") -> MatchResult:
     """A stack of B gated match problems, (B, N, ...) inputs -> a
     MatchResult of (B, N) tensors.
 
     All problems share radius, metric and Sampson threshold; the Sampson
     and ratio gates are per problem (``use_epi``/``use_rat`` (B,) bool,
-    ``ratios`` (B,)).  The descriptor distances of all B problems are one
-    call, so on the card one kernel launch.
+    ``ratios`` (B,)), and so is F, (3, 3) for all or (B, 3, 3).  The B
+    problems are one call, so on the card one kernel launch of the
+    backend's kernel.
     """
-    ok = _gates(q_xy, q_valid, t_xy, t_valid, radius)
-    epi_ok = _epipolar_ok(F, q_xy, t_xy, sampson_thresh)
-    ok &= torch.where(use_epi[:, None, None], epi_ok, True)
-    dd = descriptor_distances(q_d, t_d, metric=metric)
-    dd = torch.where(ok, dd, torch.full_like(dd, float("inf")))
-    best, second, bidx = two_smallest(dd)
+    check_backend(backend, metric)
+    if backend == "dense":
+        ok = _gates(q_xy, q_valid, t_xy, t_valid, radius)
+        epi_ok = _epipolar_ok(F, q_xy, t_xy, sampson_thresh)
+        ok &= torch.where(use_epi[:, None, None], epi_ok, True)
+        dd = descriptor_distances(q_d, t_d, metric=metric)
+        dd = torch.where(ok, dd, torch.full_like(dd, float("inf")))
+        best, second, bidx = two_smallest(dd)
+    else:
+        best, second, bidx = _fused_two_min(
+            backend, q_xy, q_valid, q_d, t_xy, t_valid, t_d, F, use_epi,
+            sampson_thresh, radius)
     valid = torch.isfinite(best) & q_valid
     valid &= torch.where(use_rat[:, None], best < second * ratios[:, None],
                          True)
@@ -146,10 +205,14 @@ def match_problem_batch(q_xy, q_valid, q_d, t_xy, t_valid, t_d,
 
 def match_frame_triple(kp1: Keypoints, d1, kp2: Keypoints, d2,
                        kp1p: Keypoints, d1p, kp2p: Keypoints, d2p,
-                       stereo: MatchConfig, temporal: MatchConfig, F):
+                       stereo: MatchConfig, temporal: MatchConfig, F,
+                       backend="dense"):
     """The per-frame match workload: LR stereo (epipolar-gated), left
     temporal and right temporal (ratio-tested), as one 3-problem batch
     when the two configs share radius and metric, else three calls.
+
+    The inputs may carry leading stream dims, (S, N, ...) with F
+    (S, 3, 3): the 3 S problems of S streams are then one batch.
 
     Returns (match_lr, match_11, match_22).
     """
@@ -161,34 +224,58 @@ def match_frame_triple(kp1: Keypoints, d1, kp2: Keypoints, d2,
     check_match_supported(temporal)
     if (stereo.radius != temporal.radius
             or stereo.metric != temporal.metric):
-        return (match_descriptors(kp1, d1, kp2, d2, stereo, F=F),
-                match_descriptors(kp1, d1, kp1p, d1p, temporal),
-                match_descriptors(kp2, d2, kp2p, d2p, temporal))
+        return (match_descriptors(kp1, d1, kp2, d2, stereo, F=F,
+                                  backend=backend),
+                match_descriptors(kp1, d1, kp1p, d1p, temporal,
+                                  backend=backend),
+                match_descriptors(kp2, d2, kp2p, d2p, temporal,
+                                  backend=backend))
 
     dev = d1.device
+    lead = kp1.valid.shape[:-1]
+    n = d1.shape[-2]
+    S = int(torch.Size(lead).numel())
+
+    def stack(a, b, c):
+        x = torch.stack([a, b, c], dim=len(lead))
+        return x.reshape(3 * S, n, *x.shape[len(lead) + 2:])
+
+    if lead:   # one F per problem: the stream's F for its three problems
+        F = F[:, None].expand(S, 3, 3, 3).reshape(3 * S, 3, 3)
     res = match_problem_batch(
-        q_xy=torch.stack([kp1.xy, kp1.xy, kp2.xy]),
-        q_valid=torch.stack([kp1.valid, kp1.valid, kp2.valid]),
-        q_d=torch.stack([d1, d1, d2]),
-        t_xy=torch.stack([kp2.xy, kp1p.xy, kp2p.xy]),
-        t_valid=torch.stack([kp2.valid, kp1p.valid, kp2p.valid]),
-        t_d=torch.stack([d2, d1p, d2p]),
+        q_xy=stack(kp1.xy, kp1.xy, kp2.xy),
+        q_valid=stack(kp1.valid, kp1.valid, kp2.valid),
+        q_d=stack(d1, d1, d2),
+        t_xy=stack(kp2.xy, kp1p.xy, kp2p.xy),
+        t_valid=stack(kp2.valid, kp1p.valid, kp2p.valid),
+        t_d=stack(d2, d1p, d2p),
         use_epi=torch.tensor([stereo.use_epipolar, False, False],
-                             device=dev),
+                             device=dev).repeat(S),
         use_rat=torch.tensor([stereo.use_ratio, temporal.use_ratio,
-                              temporal.use_ratio], device=dev),
+                              temporal.use_ratio], device=dev).repeat(S),
         ratios=torch.tensor([stereo.ratio, temporal.ratio, temporal.ratio],
-                            dtype=d1.dtype, device=dev),
+                            dtype=d1.dtype, device=dev).repeat(S),
         radius=stereo.radius, sampson_thresh=stereo.sampson_thresh,
-        metric=stereo.metric, F=F)
-    return tuple(MatchResult(*(x[i] for x in res)) for i in range(3))
+        metric=stereo.metric, F=F, backend=backend)
+    res = MatchResult(*(x.reshape(*lead, 3, n) for x in res))
+    return tuple(MatchResult(*(x[..., i, :] for x in res)) for i in range(3))
 
 
 def match_descriptors(kp1: Keypoints, d1, kp2: Keypoints, d2,
                       cfg: MatchConfig = MatchConfig(),
-                      F=None) -> MatchResult:
+                      F=None, backend="dense") -> MatchResult:
     """Match view-1 keypoints to view-2 keypoints (one match per slot);
     ``cfg.use_epipolar`` requires the (3, 3) fundamental matrix ``F``."""
-    dd = gated_distance_matrix(kp1, d1, kp2, d2, cfg, F=F)
-    best, second, best_idx = two_smallest(dd)
+    check_backend(backend, cfg.metric)
+    if backend == "dense":
+        dd = gated_distance_matrix(kp1, d1, kp2, d2, cfg, F=F)
+        best, second, best_idx = two_smallest(dd)
+    else:
+        check_match_supported(cfg)
+        if cfg.use_epipolar and F is None:
+            raise ValueError("epipolar gating requires F")
+        best, second, best_idx = _fused_two_min(
+            backend, kp1.xy, kp1.valid, d1, kp2.xy, kp2.valid, d2,
+            torch.zeros(3, 3) if F is None else F,
+            torch.tensor(cfg.use_epipolar), cfg.sampson_thresh, cfg.radius)
     return finalize_match(best, second, best_idx, kp1.valid, cfg)

@@ -1,0 +1,331 @@
+"""Multi-stream stereo odometry: S independent sequences per step (port of
+``libviso_tpu/pipeline/multistream.py``).
+
+Where the JAX package vmaps the whole frame step over S streams, the port
+writes the stream axis out where it pays: one front-end call on the
+(2, S, H, W) image stack, one matcher call on the 3 S match problems with
+per-stream F (on the card one kernel launch for all streams, whichever
+matcher backend), and triangulation and the circle filter over (S, N)
+tensors with per-stream calibration.  The RANSAC + Gauss-Newton solve
+runs per stream, S calls of the same ``build_solve``; a stream axis
+through it is later work (ROADMAP.md).
+
+Semantics: stream s consumes the images, calibration and RANSAC draws of
+its solo ``run_stereo_sequence`` (frame t draws from
+``frame_generator(seed_s, t)``), and every batched stage computes each
+stream's values with the per-element arithmetic of the solo step, so the
+discrete per-frame stats equal the solo run's (tests/test_torch_
+multistream.py; motions within 5e-6, poses within 5e-5, as the JAX
+package's contract).  A stream that has run out of frames idles on its
+last frame; its outputs are discarded and its solve is skipped.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from libviso_torch.config import Calib, PipelineConfig
+from libviso_torch.geometry.mvg import F_from_P_host
+from libviso_torch.ops.matching import match_frame_triple
+from libviso_torch.pipeline.stereo import (
+    FrameState,
+    SequenceResult,
+    build_frontend,
+    build_solve,
+    check_supported,
+    empty_state,
+    gather_correspondences,
+    resolve_device,
+    sequence_result,
+)
+from libviso_torch.solvers.ransac import frame_generator, sample_gumbel
+
+
+def _leaves(state):
+    """The tensors of a (nested) FrameState, in field order."""
+    for x in state:
+        if isinstance(x, tuple):
+            yield from _leaves(x)
+        else:
+            yield x
+
+
+def _rebuild(template, leaves):
+    it = iter(leaves)
+
+    def build(t):
+        return type(t)(*(build(x) if isinstance(x, tuple) else next(it)
+                         for x in t))
+
+    return build(template)
+
+
+def stack_states(states) -> FrameState:
+    """Stack per-stream FrameStates along a new leading axis."""
+    return _rebuild(states[0], (torch.stack(xs) for xs in
+                                zip(*(list(_leaves(s)) for s in states))))
+
+
+def stream_calib(calibs: Sequence[Calib], device) -> Calib:
+    """The streams' calibrations as one Calib of (S, 1) float32 tensors,
+    which broadcast against (S, N) per-slot tensors."""
+    def col(name):
+        return torch.tensor([[getattr(c, name)] for c in calibs],
+                            dtype=torch.float32, device=device)
+
+    return Calib(f=col("f"), cu=col("cu"), cv=col("cv"), base=col("base"))
+
+
+def build_multistream_step(cfg: PipelineConfig, backend: str = "dense",
+                           on_stage: Optional[Callable[[str], None]] = None):
+    """Build the S-stream frame step.
+
+    ``on_stage``, if given, is called with the name of each stage as it
+    ends: "front_end", "match", "correspondences", "solves" (the stage
+    profile of ``tools/profile_torch_step.py --serve``).
+
+    Returns:
+      step(calibs, F, states, im1s, im2s, gumbels) -> (new_states, outs)
+      where calibs is the list of S Calibs, F (S, 3, 3), states an
+      S-stacked FrameState, im1s/im2s (S, H, W) and gumbels a list of S
+      (num_hypotheses, num_slots) draws, None for a stream that idles
+      this step.  ``outs`` is the list of S FrameOutputs
+      (None where the stream idled).
+    """
+    check_supported(cfg, backend)
+    frontend = build_frontend(cfg)
+    mark = on_stage or (lambda stage: None)
+
+    def step(calibs, F, states, im1s, im2s, gumbels):
+        feats = frontend(im1s, im2s)        # (2, S, H, W): one call
+        mark("front_end")
+        matches = match_frame_triple(        # 3 S problems: one call
+            feats.kp1, feats.d1, feats.kp2, feats.d2, states.kp1,
+            states.d1, states.kp2, states.d2, cfg.stereo_match,
+            cfg.temporal_match, F, backend=backend)
+        mark("match")
+        new_states, si, _ = gather_correspondences(
+            stream_calib(calibs, im1s.device), feats, states, *matches)
+        mark("correspondences")
+        outs = []
+        for s, gumbel in enumerate(gumbels):
+            if gumbel is None:
+                outs.append(None)
+                continue
+            solve = build_solve(calibs[s], cfg)
+            outs.append(solve(type(si)(*(x[s] for x in si)), gumbel))
+        mark("solves")
+        return new_states, outs
+
+    return step
+
+
+def build_multistream_chunk(cfg: PipelineConfig, chunk: int,
+                            backend: str = "dense"):
+    """S streams x K frames a step: not ported yet."""
+    raise NotImplementedError(
+        "the chunked multi-stream step is not ported yet: ROADMAP.md "
+        "Queue 1 item 7 (chunk > 1)")
+
+
+def jit_multistream_sharded(mesh, cfg: PipelineConfig, chunk: int = 1,
+                            backend: str = "dense", axis: str = "data"):
+    """The stream axis sharded over several devices: not ported yet."""
+    raise NotImplementedError(
+        "multi-device serving is not ported yet: ROADMAP.md Queue 1 "
+        "item 15 (parallel layer)")
+
+
+def _default_draws(cfg: PipelineConfig, seeds):
+    shape = (cfg.ransac.num_hypotheses, cfg.detector.num_slots)
+    return lambda s, t: sample_gumbel(shape, frame_generator(seeds[s], t))
+
+
+def _upload(images, device):
+    return torch.tensor(np.stack([np.asarray(x) for x in images]),
+                        device=device)
+
+
+class StreamPool:
+    """Serving lifecycle driver: S fixed slots, each holding an independent
+    sequence, advanced in lockstep by one step per timestep, with slot
+    replacement: a finished slot is re-seeded with a new sequence (new
+    calibration, seed and fresh state).
+
+    Usage:
+        pool = StreamPool(cfg, slots=4, device="cuda")
+        pool.attach(0, frames_a, P1a, P2a, seed=7)
+        pool.attach(1, frames_b, P1b, P2b, seed=9)
+        while pool.active():
+            pool.step()                       # one step, all slots
+            for s in pool.finished():
+                res = pool.detach(s)          # SequenceResult
+                pool.attach(s, next_seq, ...) # immediate reuse
+
+    Per-slot results keep the multistream contract (discrete stats equal
+    to the solo run).  Empty slots idle on zero frames and finished ones on
+    their last frame; neither is solved, and their outputs are dropped.
+    """
+
+    def __init__(self, cfg: PipelineConfig, slots: int, device="cuda",
+                 backend: str = "dense",
+                 draws: Optional[Callable[[int, int], torch.Tensor]] = None):
+        self.cfg = cfg
+        self.S = slots
+        self.device = resolve_device(device)
+        self._step = build_multistream_step(cfg, backend)
+        self._states = stack_states(
+            [empty_state(cfg, self.device) for _ in range(slots)])
+        self._calibs = [Calib(0.0, 0.0, 0.0, 0.0)] * slots
+        self._Fs = torch.zeros((slots, 3, 3), dtype=torch.float32,
+                               device=self.device)
+        self._seeds = [0] * slots
+        self._draws = draws or _default_draws(cfg, self._seeds)
+        self._frames = [None] * slots     # list of (imL, imR) or None
+        self._cursor = [0] * slots        # next local frame index
+        self._outs = [[] for _ in range(slots)]
+        self._shape = None                # (H, W) pinned by the first attach
+
+    def attach(self, slot: int, frames, P1, P2, seed: int = 0):
+        """Seed ``slot`` with a new sequence: its state is reset to empty by
+        a row write into the stacked state, in place."""
+        frames = list(frames)
+        if not frames:
+            raise ValueError("attach needs at least one frame")
+        shape = np.asarray(frames[0][0]).shape
+        if self._shape is None:
+            self._shape = shape
+        elif shape != self._shape:
+            raise ValueError(
+                f"slot {slot}: frame shape {shape} != pool shape "
+                f"{self._shape} (a pool serves one image shape; open a "
+                "second pool for a second shape)")
+        for row, empty in zip(_leaves(self._states),
+                              _leaves(empty_state(self.cfg, self.device))):
+            row[slot] = empty                       # in place
+        self._calibs[slot] = Calib.from_projections(P1, P2)
+        self._Fs[slot] = torch.as_tensor(F_from_P_host(P1, P2),
+                                         dtype=torch.float32)
+        self._seeds[slot] = seed
+        self._frames[slot] = frames
+        self._cursor[slot] = 0
+        self._outs[slot] = []
+
+    def active(self):
+        """Slots that still have frames to consume."""
+        return [s for s in range(self.S)
+                if self._frames[s] is not None
+                and self._cursor[s] < len(self._frames[s])]
+
+    def finished(self):
+        """Attached slots whose sequence is fully consumed."""
+        return [s for s in range(self.S)
+                if self._frames[s] is not None
+                and self._cursor[s] >= len(self._frames[s])]
+
+    def step(self):
+        """One lockstep step advancing every active slot by one frame."""
+        if self._shape is None:
+            raise RuntimeError("step() before any attach()")
+        zeros = np.zeros(self._shape, np.uint8)
+        lefts, rights, gumbels, live = [], [], [], []
+        for s in range(self.S):
+            fr = self._frames[s]
+            if fr is None:
+                lefts.append(zeros)
+                rights.append(zeros)
+                gumbels.append(None)
+                continue
+            t = min(self._cursor[s], len(fr) - 1)
+            lefts.append(fr[t][0])
+            rights.append(fr[t][1])
+            if self._cursor[s] < len(fr):
+                # draws by local frame index: a replacement stream draws
+                # what its solo run draws
+                gumbels.append(self._draws(s, t).to(self.device))
+                live.append(s)
+                self._cursor[s] += 1
+            else:
+                gumbels.append(None)
+        self._states, outs = self._step(
+            self._calibs, self._Fs, self._states,
+            _upload(lefts, self.device), _upload(rights, self.device),
+            gumbels)
+        for s in live:
+            self._outs[s].append(outs[s])
+
+    def detach(self, slot: int) -> SequenceResult:
+        """Finalize ``slot``: its SequenceResult; the slot is free for a new
+        attach."""
+        if self._frames[slot] is None:
+            raise ValueError(f"slot {slot} is not attached")
+        res = sequence_result(self._outs[slot])
+        self._frames[slot] = None
+        self._outs[slot] = []
+        return res
+
+
+def run_multistream(sequences: Sequence, P1s, P2s,
+                    cfg: PipelineConfig = PipelineConfig(),
+                    seeds: Sequence[int] | None = None, device="cuda",
+                    backend: str = "dense", checkpoint=None,
+                    draws: Optional[Callable[[int, int], torch.Tensor]] = None,
+                    on_step=None, on_stage=None) -> List[SequenceResult]:
+    """Drive S sequences in lockstep through the S-stream step.
+
+    Args:
+      sequences: per-stream frame lists ``[(imL, imR), ...]`` of one
+        shared (H, W).  Streams may differ in length; a short stream idles
+        on its last frame.
+      P1s, P2s: per-stream 3x4 projection matrices.
+      seeds: per-stream seeds (default 0..S-1): stream s draws frame t from
+        ``frame_generator(seeds[s], t)``, as its solo run does.
+      device: torch device; "cuda" without a card raises.
+      backend: the matcher route, "dense", "fused" or "sweep".
+      checkpoint: not ported yet; anything but None raises.
+      draws: optional callable (s, t) -> stream s's Gumbel draws for frame
+        t (a test seam, the counterpart of ``run_stereo_sequence``'s).
+      on_step: optional callback(t, outs) after each timestep.
+      on_stage: optional callback(stage) at the end of each stage of the
+        step (``build_multistream_step``).
+
+    Returns:
+      One SequenceResult per stream, of that stream's own length.
+    """
+    if checkpoint is not None:
+        raise NotImplementedError(
+            "checkpoints are not ported yet: ROADMAP.md Queue 1 item 8 "
+            "(main-path options)")
+    S = len(sequences)
+    if len(P1s) != S or len(P2s) != S:
+        raise ValueError(f"{S} sequences need {S} P1s and P2s")
+    if S == 0:
+        return []
+    seeds = list(range(S)) if seeds is None else list(seeds)
+    device = resolve_device(device)
+    draws = draws or _default_draws(cfg, seeds)
+    step = build_multistream_step(cfg, backend, on_stage)
+    calibs = [Calib.from_projections(P1s[s], P2s[s]) for s in range(S)]
+    F = torch.as_tensor(np.stack([F_from_P_host(P1s[s], P2s[s])
+                                  for s in range(S)]),
+                        dtype=torch.float32, device=device)
+    lengths = [len(fr) for fr in sequences]
+    states = stack_states([empty_state(cfg, device) for _ in range(S)])
+    outs = [[] for _ in range(S)]
+    for t in range(max(lengths)):
+        frames = [sequences[s][min(t, lengths[s] - 1)] for s in range(S)]
+        gumbels = [draws(s, t).to(device) if t < lengths[s] else None
+                   for s in range(S)]
+        states, step_outs = step(calibs, F, states,
+                                 _upload([f[0] for f in frames], device),
+                                 _upload([f[1] for f in frames], device),
+                                 gumbels)
+        for s in range(S):
+            if t < lengths[s]:
+                outs[s].append(step_outs[s])
+        if on_step is not None:
+            on_step(t, step_outs)
+    return [sequence_result(o) for o in outs]

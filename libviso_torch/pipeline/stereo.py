@@ -27,7 +27,11 @@ from libviso_torch.ops.features import (
     check_detector_supported,
     detect_and_describe,
 )
-from libviso_torch.ops.matching import check_match_supported, match_frame_triple
+from libviso_torch.ops.matching import (
+    check_backend,
+    check_match_supported,
+    match_frame_triple,
+)
 from libviso_torch.solvers.ransac import (
     frame_generator,
     ransac_pose,
@@ -80,9 +84,12 @@ class SolveInput(NamedTuple):
     sharpness: torch.Tensor   # ()
 
 
-def check_supported(cfg: PipelineConfig):
+def check_supported(cfg: PipelineConfig, backend: str = "dense"):
     """Raise ``NotImplementedError`` for options the port does not run
-    yet, naming the ROADMAP item that ports them."""
+    yet, naming the ROADMAP item that ports them, and ``ValueError`` for a
+    matcher backend the metrics cannot take."""
+    check_backend(backend, cfg.stereo_match.metric)
+    check_backend(backend, cfg.temporal_match.metric)
     check_detector_supported(cfg.detector)
     check_match_supported(cfg.stereo_match)
     check_match_supported(cfg.temporal_match)
@@ -118,38 +125,56 @@ def build_frontend(cfg: PipelineConfig):
     return frontend
 
 
-def build_prepare(calib: Calib, F, cfg: PipelineConfig):
+def gather_correspondences(calib: Calib, feats: Feats, state: FrameState,
+                           mlr, m11, m22):
+    """The part of ``prepare`` after matching: observations, 3D points,
+    circle filter and the solve's inputs -> (new_state, SolveInput,
+    CircleResult).
+
+    Every input may carry leading stream dims; ``calib``'s fields are then
+    tensors that broadcast against them ((S, 1)), one row per stream.
+    """
+    kp1, d1, kp2, d2 = feats
+
+    def take(x, idx):   # x[..., idx, :] per leading index
+        return torch.take_along_dim(x, idx[..., None], dim=-2)
+
+    n = kp1.valid.shape[-1]
+    # per-left-slot observations (u_l, v_l, u_r, v_r) and 3D points
+    r_safe = torch.clamp(mlr.idx, 0, n - 1)
+    obs = torch.cat([kp1.xy, take(kp2.xy, r_safe)], dim=-1)
+    X = triangulate_rectified(obs, calib.f, calib.base, calib.cu, calib.cv)
+
+    circ = circle_filter(mlr.idx, state.match_lr, m11.idx, m22.idx)
+    lp_safe = torch.clamp(circ.left_prev, 0, n - 1)
+    pts_valid = (circ.valid & torch.gather(state.X_valid, -1, lp_safe)
+                 & mlr.valid)
+
+    new_state = FrameState(
+        kp1=kp1, kp2=kp2, d1=d1, d2=d2, match_lr=mlr.idx, X=X,
+        X_valid=mlr.valid, fail_age=torch.zeros_like(state.fail_age))
+    n_kp1 = kp1.valid.sum(-1)
+    si = SolveInput(
+        Xp=take(state.X, lp_safe), obs=obs, pts_valid=pts_valid,
+        circ_count=circ.count, num_lr=mlr.valid.sum(-1), num_kp1=n_kp1,
+        sharpness=(torch.where(kp1.valid, kp1.response, 0.0).sum(-1)
+                   / torch.clamp(n_kp1, min=1)))
+    return new_state, si, circ
+
+
+def build_prepare(calib: Calib, F, cfg: PipelineConfig,
+                  backend: str = "dense"):
     """prepare(feats, state) -> (new_state, SolveInput, CircleResult):
     matching through correspondence gathering.  ``F`` is the (3, 3)
-    fundamental matrix as a tensor on the step's device."""
-    n = cfg.detector.num_slots
+    fundamental matrix as a tensor on the step's device; ``backend`` the
+    matcher route (``ops/matching.py``)."""
 
     def prepare(feats: Feats, state: FrameState):
         kp1, d1, kp2, d2 = feats
-        mlr, m11, m22 = match_frame_triple(
+        matches = match_frame_triple(
             kp1, d1, kp2, d2, state.kp1, state.d1, state.kp2, state.d2,
-            cfg.stereo_match, cfg.temporal_match, F)
-
-        # per-left-slot observations (u_l, v_l, u_r, v_r) and 3D points
-        r_safe = torch.clamp(mlr.idx, 0, n - 1)
-        obs = torch.cat([kp1.xy, kp2.xy[r_safe]], dim=-1)
-        X = triangulate_rectified(obs, calib.f, calib.base, calib.cu,
-                                  calib.cv)
-
-        circ = circle_filter(mlr.idx, state.match_lr, m11.idx, m22.idx)
-        lp_safe = torch.clamp(circ.left_prev, 0, n - 1)
-        pts_valid = circ.valid & state.X_valid[lp_safe] & mlr.valid
-
-        new_state = FrameState(
-            kp1=kp1, kp2=kp2, d1=d1, d2=d2, match_lr=mlr.idx, X=X,
-            X_valid=mlr.valid, fail_age=torch.zeros_like(state.fail_age))
-        n_kp1 = kp1.valid.sum()
-        si = SolveInput(
-            Xp=state.X[lp_safe], obs=obs, pts_valid=pts_valid,
-            circ_count=circ.count, num_lr=mlr.valid.sum(), num_kp1=n_kp1,
-            sharpness=(torch.where(kp1.valid, kp1.response, 0.0).sum()
-                       / torch.clamp(n_kp1, min=1)))
-        return new_state, si, circ
+            cfg.stereo_match, cfg.temporal_match, F, backend=backend)
+        return gather_correspondences(calib, feats, state, *matches)
 
     return prepare
 
@@ -170,9 +195,10 @@ def build_solve(calib: Calib, cfg: PipelineConfig):
     return solve
 
 
-def build_backend(calib: Calib, F, cfg: PipelineConfig):
+def build_backend(calib: Calib, F, cfg: PipelineConfig,
+                  backend: str = "dense"):
     """backend_fn(feats, state, gumbel) -> (new_state, FrameOutput)."""
-    prepare = build_prepare(calib, F, cfg)
+    prepare = build_prepare(calib, F, cfg, backend=backend)
     solve = build_solve(calib, cfg)
 
     def backend_fn(feats: Feats, state: FrameState, gumbel):
@@ -182,14 +208,16 @@ def build_backend(calib: Calib, F, cfg: PipelineConfig):
     return backend_fn
 
 
-def build_frame_step(calib: Calib, F, cfg: PipelineConfig):
+def build_frame_step(calib: Calib, F, cfg: PipelineConfig,
+                     backend: str = "dense"):
     """step(state, im1, im2, gumbel) -> (new_state, FrameOutput).
 
-    ``gumbel`` is the frame's (num_hypotheses, num_slots) RANSAC draw.
+    ``gumbel`` is the frame's (num_hypotheses, num_slots) RANSAC draw;
+    ``backend`` the matcher route: "dense", "fused" or "sweep".
     """
-    check_supported(cfg)
+    check_supported(cfg, backend)
     frontend = build_frontend(cfg)
-    backend_fn = build_backend(calib, F, cfg)
+    backend_fn = build_backend(calib, F, cfg, backend=backend)
 
     def step(state: FrameState, im1, im2, gumbel):
         return backend_fn(frontend(im1, im2), state, gumbel)
@@ -220,8 +248,8 @@ def run_stereo_sequence(frames: Iterable, P1, P2,
                         cfg: PipelineConfig = PipelineConfig(),
                         seed: int = 0, device="cuda", on_frame=None,
                         draws: Optional[Callable[[int], torch.Tensor]] = None,
-                        chunk: int = 1, dbg_dir=None, checkpoint=None
-                        ) -> SequenceResult:
+                        chunk: int = 1, dbg_dir=None, checkpoint=None,
+                        backend: str = "dense") -> SequenceResult:
     """Stream stereo pairs through the per-frame step on ``device``.
 
     Args:
@@ -234,6 +262,8 @@ def run_stereo_sequence(frames: Iterable, P1, P2,
         one on the CPU see the same draws.
       chunk, dbg_dir, checkpoint: accepted for the JAX signature; values
         other than the defaults are not ported yet and raise.
+      backend: the matcher route, "dense" (default), "fused" or "sweep"
+        (``ops/matching.py``); the fused routes need metric 'l1'.
     """
     if chunk != 1:
         raise NotImplementedError(
@@ -246,7 +276,7 @@ def run_stereo_sequence(frames: Iterable, P1, P2,
     calib = Calib.from_projections(P1, P2)
     F = torch.as_tensor(F_from_P_host(P1, P2), dtype=torch.float32,
                         device=device)
-    step = build_frame_step(calib, F, cfg)
+    step = build_frame_step(calib, F, cfg, backend=backend)
     shape = (cfg.ransac.num_hypotheses, cfg.detector.num_slots)
     if draws is None:
         draws = lambda t: sample_gumbel(  # noqa: E731
@@ -262,18 +292,32 @@ def run_stereo_sequence(frames: Iterable, P1, P2,
         if on_frame is not None:
             on_frame(t, out)
 
+    return sequence_result(outs)
+
+
+_JUMP_WEIGHTS = np.array([10.0, 10.0, 10.0, 1.0, 1.0, 1.0])
+
+
+def _motion_jump(tr, ok, prev_motions, prev_oks):
+    """Weighted 6-dof delta to the previous motion when both were accepted
+    (the dominant-mover health signal), in float64."""
+    if ok and prev_oks and prev_oks[-1]:
+        d = (np.asarray(tr, np.float64)
+             - np.asarray(prev_motions[-1], np.float64)) * _JUMP_WEIGHTS
+        return float(np.linalg.norm(d))
+    return 0.0
+
+
+def sequence_result(outs) -> SequenceResult:
+    """SequenceResult of one sequence's per-frame outputs, frame 0 first:
+    stats, motions and chained poses.  The solo, multi-stream and pool
+    drivers all build their results here."""
     motions, oks, stats = [], [], []
     for t, out in enumerate(outs):
         out = FrameOutput(*(x.cpu() for x in out))
         ok = bool(out.ok) and t != 0  # the reference skips frame 0
         tr = out.tr.numpy()
-        jump = 0.0
-        if ok and oks and oks[-1]:
-            # weighted 6-dof delta to the previous accepted motion (the
-            # dominant-mover health signal), in float64
-            d = (tr.astype(np.float64) - motions[-1].astype(np.float64)) \
-                * np.array([10.0, 10.0, 10.0, 1.0, 1.0, 1.0])
-            jump = float(np.linalg.norm(d))
+        jump = _motion_jump(tr, ok, motions, oks)
         motions.append(tr)
         oks.append(ok)
         stats.append({

@@ -1,5 +1,7 @@
-"""Card-only tests of libviso_torch: the CUDA L1 kernel against its plain
-version, and the pipeline on the card against the pipeline on the CPU.
+"""Card-only tests of libviso_torch: the CUDA kernels (L1 distance, fused
+gated matcher and its sweep) against their plain versions, and the
+pipeline and multi-stream serving on the card against the CPU and the solo
+runs.
 
 Every test is marked ``cuda`` and skips without a card.  The file imports
 no JAX, so it runs on a machine that has none; the suite's conftest.py
@@ -7,9 +9,10 @@ does import JAX, hence on the card's machine:
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q --noconftest
 
-Tolerances: the kernel equals the plain version bitwise on
+Tolerances: the kernels equal their plain versions bitwise on
 integer-valued descriptors (every sum is an integer below 2^24, exact in
-float32 in any order) and within rtol 1e-5 on random floats (sums in
+float32 in any order; the fused kernels' gates are the plain version's
+expressions, rounded alike) and within rtol 1e-5 on random floats (sums in
 another order); card and CPU pipelines agree on every discrete per-frame
 output and within atol 1e-4 on the motions.
 """
@@ -19,9 +22,12 @@ import pytest
 import torch
 
 from libviso_torch.config import PipelineConfig
+from libviso_torch.geometry.mvg import F_from_P_host
 from libviso_torch.ops import cuda_matching as cm
+from libviso_torch.ops import fused_matching as fm
+from libviso_torch.pipeline.multistream import run_multistream
 from libviso_torch.pipeline.stereo import run_stereo_sequence
-from libviso_torch.synthetic import generate_sequence
+from libviso_torch.synthetic import generate_sequence, kitti_projections
 
 pytestmark = pytest.mark.cuda
 
@@ -99,3 +105,104 @@ def test_card_run_matches_cpu_run():
         assert {k: a[k] for k in keys} == {k: b[k] for k in keys}
     assert gpu.frame_ok[1:].all()
     np.testing.assert_allclose(gpu.motions, cpu.motions, atol=1e-4)
+
+
+def _match_problem(B, N1, N2, D, seed=0, device="cuda"):
+    """B match problems of a rectified KITTI-size pair: queries at integer
+    pixel positions of a 1241 x 376 image, each target a query moved by an
+    integer disparity of 0-60 px and a row jitter of -1, 0 or 1 px (so the
+    Sampson gate, at most 0.5 here, admits it), descriptors in {0, ..., 3}
+    (exact distance ties occur), F of KITTI's P0/P1, and the Sampson gate
+    on every other problem from the second."""
+    rng = np.random.default_rng(seed)
+    q_xy = np.round(rng.uniform(0, [1240, 375], (B, N1, 2)))
+    src = np.stack([rng.choice(N1, N2, replace=N2 > N1) for _ in range(B)])
+    shift = np.stack([-rng.integers(0, 61, (B, N2)),
+                      rng.integers(-1, 2, (B, N2))], -1)
+    t_xy = np.clip(np.take_along_axis(q_xy, src[..., None], 1) + shift, 0,
+                   [1240, 375])
+    F = np.tile(F_from_P_host(*kitti_projections()), (B, 1, 1))
+    dev = lambda x: torch.tensor(x, device=device)  # noqa: E731
+    return [dev(q_xy.astype(np.float32)), dev(rng.random((B, N1)) > 0.1),
+            dev(rng.integers(0, 4, (B, N1, D)).astype(np.float32)),
+            dev(t_xy.astype(np.float32)), dev(rng.random((B, N2)) > 0.1),
+            dev(rng.integers(0, 4, (B, N2, D)).astype(np.float32)),
+            dev(F.astype(np.float32)), dev(np.arange(B) % 2 == 1)]
+
+
+FUSED = [("fused_gated_two_min", fm.fused_gated_two_min, None),
+         ("fused_sweep_two_min", fm.sorted_fused_two_min,
+          fm.fused_sweep_two_min_plain)]
+
+
+@pytest.mark.parametrize("kernel", FUSED, ids=lambda k: k[0])
+@pytest.mark.parametrize("shape", [(3, 1280, 1280, 128),
+                                   (2, 1000, 777, 128), (1, 5, 3, 4)])
+def test_fused_kernels_match_plain_bitwise(kernel, shape):
+    require_cuda()
+    name, fn, plain_sweep = kernel
+    args = _match_problem(*shape)
+    before = fm.launches[name]
+    got = fn(*args, 1.0, 80.0)
+    torch.cuda.synchronize()
+    assert fm.launches[name] == before + 1
+    if plain_sweep is None:
+        want = fm.fused_gated_two_min_plain(*args, 1.0, 80.0)
+    else:
+        want = fm.sorted_fused_two_min(*args, 1.0, 80.0, sweep=plain_sweep)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+    if shape[1] >= 1000:        # a real workload, not empty rows
+        assert torch.isfinite(got[0]).float().mean() > 0.5
+        assert torch.isfinite(got[0][args[7]]).float().mean() > 0.5
+
+
+def test_fused_kernels_reject_what_they_do_not_take():
+    require_cuda()
+    args = _match_problem(1, 64, 64, 128)
+    for fn in (fm.fused_gated_two_min, fm.fused_sweep_two_min):
+        bad = list(args)
+        bad[2] = bad[2].double()
+        with pytest.raises(TypeError):
+            fn(*bad)
+        bad = list(args)
+        bad[2] = bad[2].transpose(1, 2).contiguous().transpose(1, 2)
+        with pytest.raises(ValueError, match="contiguous"):
+            fn(*bad)
+        bad = list(args)
+        buf = torch.empty(64 * 128 + 1, device="cuda")
+        bad[5] = buf[1:].view(1, 64, 128).copy_(args[5])
+        with pytest.raises(ValueError, match="aligned"):
+            fn(*bad)
+        bad = list(args)
+        bad[7] = bad[7].float()
+        with pytest.raises(TypeError):
+            fn(*bad)
+
+
+@pytest.mark.parametrize("backend,kernel", [
+    ("dense", "l1_distance_matrix"), ("fused", "fused_gated_two_min"),
+    ("sweep", "fused_sweep_two_min")])
+def test_run_multistream_launches_once_per_timestep(backend, kernel):
+    require_cuda()
+    seqs = [generate_sequence(num_frames=n, num_points=500, seed=s,
+                              width=416, height=160)
+            for s, n in enumerate((3, 2))]
+    cfg = PipelineConfig().with_metric("l1")
+    solos = [run_stereo_sequence(sq.frames, sq.P1, sq.P2, cfg, seed=s,
+                                 device="cuda", backend=backend)
+             for s, sq in enumerate(seqs)]
+
+    def count():
+        return {"l1_distance_matrix": cm.launches, **fm.launches}[kernel]
+
+    before = count()
+    multi = run_multistream([sq.frames for sq in seqs],
+                            [sq.P1 for sq in seqs], [sq.P2 for sq in seqs],
+                            cfg, device="cuda", backend=backend)
+    assert count() == before + 3
+    keys = ("frame", "ok", "num_kp1", "num_lr", "num_circle", "num_inliers")
+    for got, solo in zip(multi, solos):
+        assert [{k: x[k] for k in keys} for x in got.stats] == \
+            [{k: x[k] for k in keys} for x in solo.stats]
+        np.testing.assert_allclose(got.motions, solo.motions, atol=5e-6)

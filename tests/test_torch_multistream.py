@@ -1,0 +1,142 @@
+"""Multi-stream serving of the port (``pipeline/multistream.py``, ``cli
+serve``).
+
+The contract is the JAX package's (tests/test_multistream.py): stream s of
+a multi-stream run equals its solo run in every discrete per-frame stat,
+motions within atol 5e-6 and poses within 5e-5.  With the JAX package's
+RANSAC draws injected, the port's run_multistream equals JAX's on the
+discrete stats and within atol 5e-6 on the motions.  ``cli serve`` is
+tests/test_torch_serve_cli.py's; the card's run is
+tests/test_torch_cuda.py's and chip_smoke.py's.
+"""
+
+import numpy as np
+import pytest
+
+from libviso_tpu.config import DetectorConfig as JDetectorConfig
+from libviso_tpu.config import PipelineConfig as JPipelineConfig
+from libviso_tpu.config import RansacConfig as JRansacConfig
+from libviso_tpu.pipeline.multistream import run_multistream as jax_multi
+from libviso_torch.config import from_jax_config
+from libviso_torch.pipeline import multistream as tms
+from libviso_torch.pipeline.stereo import run_stereo_sequence
+from libviso_torch.synthetic import generate_sequence
+from tests.torch_parity import jax_frame_gumbel
+
+STATS = ("frame", "ok", "num_kp1", "num_lr", "num_circle", "num_inliers")
+# the tiny configuration of tests/test_multistream.py, with metric l1
+JAX_CFG = JPipelineConfig(
+    detector=JDetectorConfig(max_features=120, nbinx=6, nbiny=2,
+                             num_slots=128),
+    ransac=JRansacConfig(num_hypotheses=16, gn_iters=10)).with_metric("l1")
+CFG = from_jax_config(JAX_CFG)
+
+
+@pytest.fixture(scope="module")
+def seqs():
+    a = generate_sequence(num_frames=6, num_points=300, width=160,
+                          height=96, f=120.0, seed=3)
+    b = generate_sequence(num_frames=4, num_points=260, width=160,
+                          height=96, f=140.0, seed=11, speed=0.6)
+    c = generate_sequence(num_frames=4, num_points=280, width=160,
+                          height=96, f=130.0, seed=21, speed=0.7)
+    return a, b, c
+
+
+def _assert_contract(got, want, motion_atol=5e-6):
+    assert len(got.stats) == len(want.stats)
+    assert [{k: s[k] for k in STATS} for s in got.stats] == \
+        [{k: s[k] for k in STATS} for s in want.stats]
+    np.testing.assert_array_equal(got.frame_ok, want.frame_ok)
+    np.testing.assert_allclose(got.motions, want.motions, rtol=0,
+                               atol=motion_atol)
+    np.testing.assert_allclose(got.poses, want.poses, rtol=0, atol=5e-5)
+
+
+@pytest.mark.parametrize("backend", ["dense", "fused", "sweep"])
+def test_multistream_matches_solo_runs(seqs, backend):
+    """Two streams of different scene, length, seed and focal length; the
+    shorter one idles on its last frame."""
+    a, b, _ = seqs
+    solos = [run_stereo_sequence(sq.frames, sq.P1, sq.P2, CFG, seed=s,
+                                 device="cpu", backend=backend)
+             for s, sq in enumerate((a, b))]
+    multi = tms.run_multistream([a.frames, b.frames], [a.P1, b.P1],
+                                [a.P2, b.P2], CFG, seeds=[0, 1],
+                                device="cpu", backend=backend)
+    for got, solo in zip(multi, solos):
+        _assert_contract(got, solo)
+    assert solos[0].frame_ok[1:].all()
+
+
+def test_multistream_matches_jax_with_injected_draws(seqs):
+    a, b, _ = seqs
+    args = ([a.frames, b.frames], [a.P1, b.P1], [a.P2, b.P2])
+    jres = jax_multi(*args, JAX_CFG, seeds=[5, 9])
+    H, N = CFG.ransac.num_hypotheses, CFG.detector.num_slots
+    seeds = [5, 9]
+    tres = tms.run_multistream(
+        *args, CFG, seeds=seeds, device="cpu", backend="fused",
+        draws=lambda s, t: jax_frame_gumbel(seeds[s], t, H, N))
+    for got, want in zip(tres, jres):
+        _assert_contract(got, want)
+
+
+def test_stream_pool_replacement_gives_solo_results(seqs):
+    """Slot 1 finishes first and is re-seeded with a third sequence; every
+    sequence, original and replacement, reproduces its solo run."""
+    a, b, c = seqs
+    b_frames = b.frames[:3]
+    solos = {
+        "a": run_stereo_sequence(a.frames, a.P1, a.P2, CFG, seed=0,
+                                 device="cpu"),
+        "b": run_stereo_sequence(b_frames, b.P1, b.P2, CFG, seed=1,
+                                 device="cpu"),
+        "c": run_stereo_sequence(c.frames, c.P1, c.P2, CFG, seed=2,
+                                 device="cpu"),
+    }
+    pool = tms.StreamPool(CFG, slots=2, device="cpu")
+    pool.attach(0, a.frames, a.P1, a.P2, seed=0)
+    pool.attach(1, b_frames, b.P1, b.P2, seed=1)
+    results = {}
+    while 1 not in pool.finished():
+        pool.step()
+    results["b"] = pool.detach(1)
+    pool.attach(1, c.frames, c.P1, c.P2, seed=2)
+    while pool.active():
+        pool.step()
+    results["a"] = pool.detach(0)
+    results["c"] = pool.detach(1)
+    for name, solo in solos.items():
+        _assert_contract(results[name], solo)
+    with pytest.raises(ValueError, match="not attached"):
+        pool.detach(0)
+    with pytest.raises(ValueError, match="pool shape"):
+        pool.attach(0, [(np.zeros((8, 8)), np.zeros((8, 8)))], a.P1, a.P2)
+
+
+def test_on_stage_marks_every_stage_of_every_step(seqs):
+    a, b, _ = seqs
+    stages = []
+    tms.run_multistream([a.frames, b.frames], [a.P1, b.P1], [a.P2, b.P2],
+                        CFG, device="cpu", on_stage=stages.append)
+    assert stages == ["front_end", "match", "correspondences",
+                      "solves"] * len(a.frames)
+
+
+def test_stack_states_round_trip():
+    states = [tms.empty_state(CFG) for _ in range(3)]
+    stacked = tms.stack_states(states)
+    assert stacked.kp1.xy.shape == (3, 128, 2)
+    assert stacked.fail_age.shape == (3,)
+
+
+def test_options_not_ported_raise(seqs):
+    a = seqs[0]
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        tms.run_multistream([a.frames], [a.P1], [a.P2], CFG, device="cpu",
+                            checkpoint=object())
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+        tms.build_multistream_chunk(CFG, 2)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
+        tms.jit_multistream_sharded(None, CFG)

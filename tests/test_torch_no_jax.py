@@ -29,7 +29,8 @@ def _imported_modules(path):
 
 def test_package_has_sources():
     names = {p.relative_to(PKG).as_posix() for p in SOURCES}
-    assert {"cli.py", "pipeline/stereo.py", "ops/cuda_matching.py"} <= names
+    assert {"cli.py", "pipeline/stereo.py", "pipeline/multistream.py",
+            "ops/cuda_matching.py", "ops/fused_matching.py"} <= names
 
 
 @pytest.mark.parametrize("path", SOURCES,

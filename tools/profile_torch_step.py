@@ -2,6 +2,7 @@
 """Where the PyTorch port's frame time goes, on one CUDA card.
 
   python3 tools/profile_torch_step.py [--repeats 4] [--out FILE.json]
+  python3 tools/profile_torch_step.py --serve [--repeats 3] [--out ...]
 
 Runs from the repository root, on the KITTI-size synthetic sequence of
 chip_smoke.py (20 frames of 1241x376, default detector and RANSAC, seed 0),
@@ -17,6 +18,17 @@ and measures inside one process:
   3. a torch.profiler trace of frames 10-14 of an l1 and an l2 run: the
      device's busy share, and per frame the kernel launches, host syncs,
      host-to-device copies and the largest device kernels.
+
+With ``--serve`` it measures multi-stream serving instead, on 4 streams
+of that generator (seeds 0-3, lengths 20, 20, 16, 12; metric l1):
+
+  1. aggregate frames/s of run_multistream under each matcher backend
+     (dense, fused, sweep), after a warm-up and in alternating order, over
+     all frames and over timesteps 2-19;
+  2. per-stage host times of the serving step (upload + front-end, match,
+     correspondences, the per-stream solves), a sync after each stage;
+  3. a torch.profiler trace of timesteps 10-14 under each backend (its
+     "per frame" counts are then per timestep).
 
 Everything is printed; ``--out`` also writes it as JSON.
 """
@@ -39,6 +51,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from libviso_torch.config import Calib, PipelineConfig  # noqa: E402
 from libviso_torch.geometry.mvg import F_from_P_host  # noqa: E402
 from libviso_torch.ops import cuda_matching, matching  # noqa: E402
+from libviso_torch.pipeline import multistream  # noqa: E402
 from libviso_torch.pipeline.stereo import (  # noqa: E402
     build_frontend,
     build_prepare,
@@ -57,6 +70,8 @@ KITTI_SEQUENCE = dict(num_frames=20, num_points=900, seed=0, width=1241,
                       height=376, f=718.856, base=0.5371657, speed=0.8)
 PROFILED = range(10, 15)   # frames inside the torch.profiler window
 VARIANTS = ("l1", "l1-plain", "l2")
+SERVE_LENGTHS = (20, 20, 16, 12)
+BACKENDS = ("dense", "fused", "sweep")
 
 
 @contextlib.contextmanager
@@ -142,9 +157,10 @@ def _busy_us(intervals):
     return total
 
 
-def profile_frames(seq, metric, device):
+def profile_frames(seq, metric, device, run=None):
     """torch.profiler over frames PROFILED of one run: the device busy
-    share and per-frame counts, read from the exported trace."""
+    share and per-frame counts, read from the exported trace.  ``run``
+    replaces the run: it takes the per-frame callback (t, outputs)."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
@@ -163,9 +179,12 @@ def profile_frames(seq, metric, device):
             window["t1"] = time.perf_counter()
             prof.stop()
 
-    run_stereo_sequence(seq.frames, seq.P1, seq.P2,
-                        PipelineConfig().with_metric(metric), seed=0,
-                        device=device, on_frame=on_frame)
+    if run is None:
+        run_stereo_sequence(seq.frames, seq.P1, seq.P2,
+                            PipelineConfig().with_metric(metric), seed=0,
+                            device=device, on_frame=on_frame)
+    else:
+        run(on_frame)
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
@@ -201,11 +220,92 @@ def profile_frames(seq, metric, device):
     }
 
 
+def serve_sequences():
+    return [generate_sequence(**{**KITTI_SEQUENCE, "seed": s,
+                                 "num_frames": n})
+            for s, n in enumerate(SERVE_LENGTHS)]
+
+
+def serve_run(seqs, backend, device, on_step=None, on_stage=None):
+    return multistream.run_multistream(
+        [sq.frames for sq in seqs], [sq.P1 for sq in seqs],
+        [sq.P2 for sq in seqs], PipelineConfig().with_metric("l1"),
+        device=device, backend=backend, on_step=on_step, on_stage=on_stage)
+
+
+def serve_rate(seqs, backend, device):
+    """Aggregate frames/s of one serving run: over all frames, and over
+    timesteps 2..T-1 (from the end of timestep 1 to the end of the last)."""
+    ends = []
+
+    def on_step(t, outs):
+        sync(device)
+        ends.append(time.perf_counter())
+
+    sync(device)
+    t0 = time.perf_counter()
+    res = serve_run(seqs, backend, device, on_step)
+    active = [sum(t < n for n in SERVE_LENGTHS) for t in range(len(ends))]
+    step_ms = [1e3 * (b - a) for a, b in zip(ends[1:], ends[2:])]
+    return {"fps": sum(SERVE_LENGTHS) / (ends[-1] - t0),
+            "fps_steps_2_on": sum(active[2:]) / (ends[-1] - ends[1]),
+            "median_step_ms": statistics.median(step_ms),
+            "solved": [int(r.frame_ok.sum()) for r in res]}
+
+
+def serve_stage_times(seqs, backend, device):
+    """Mean per-stage host times [ms] of the serving step over timesteps
+    2..T-1, a sync after each stage (the stages of build_multistream_step,
+    read through its on_stage hook; "front_end" includes the draws and the
+    upload before it)."""
+    marks = []
+
+    def on_stage(stage):
+        sync(device)
+        marks.append(time.perf_counter())
+
+    sync(device)
+    marks.append(time.perf_counter())
+    serve_run(seqs, backend, device, on_stage=on_stage)
+    rows = np.diff(np.asarray(marks)).reshape(-1, 4)[2:] * 1e3
+    mean = list(rows.mean(axis=0)) + [rows.sum(axis=1).mean()]
+    return dict(zip(("front_end_ms", "match_ms", "correspondences_ms",
+                     "solves_ms", "step_ms"), (float(x) for x in mean)))
+
+
+def serve_main(args, device, result):
+    seqs = serve_sequences()
+    for backend in BACKENDS:   # warm-up
+        serve_rate(seqs, backend, device)
+    runs = {b: [] for b in BACKENDS}
+    for r in range(args.repeats):
+        for backend in BACKENDS[::1 if r % 2 == 0 else -1]:
+            row = serve_rate(seqs, backend, device)
+            runs[backend].append(row)
+            print(f"[serve] round {r} {backend}: {json.dumps(row)}")
+    for backend, rows in runs.items():
+        print(f"[serve] {backend}: median "
+              f"{statistics.median(x['fps'] for x in rows)} aggregate "
+              f"frames/s over {len(rows)} runs")
+    result["serve_rate"] = runs
+    result["serve_stages"], result["serve_profile"] = {}, {}
+    for backend in BACKENDS:
+        st = serve_stage_times(seqs, backend, device)
+        result["serve_stages"][backend] = st
+        print(f"[serve-stages] {backend}: {json.dumps(st)}")
+        pr = profile_frames(None, "l1", device, run=lambda cb, b=backend:
+                            serve_run(seqs, b, device, on_step=cb))
+        result["serve_profile"][backend] = pr
+        print(f"[serve-profile] {backend}: {json.dumps(pr)}")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--repeats", type=int, default=4,
                     help="rounds of the frame-rate comparison")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--serve", action="store_true",
+                    help="measure multi-stream serving instead")
     ap.add_argument("--out", help="also write the results here as JSON")
     args = ap.parse_args()
     device = torch.device(args.device)
@@ -220,6 +320,9 @@ def main():
              "--format=csv,noheader"], capture_output=True, text=True,
             check=True).stdout.strip().splitlines()[0]
         print(result["card"])
+    if args.serve:
+        serve_main(args, device, result)
+        return finish(args, result)
     seq = generate_sequence(**KITTI_SEQUENCE)
 
     for variant in VARIANTS:   # warm-up: kernel build, allocator, caches
@@ -244,8 +347,11 @@ def main():
         print(f"[stages] {metric}: {json.dumps(result['stages'][metric])}")
         result["profile"][metric] = profile_frames(seq, metric, device)
         print(f"[profile] {metric}: {json.dumps(result['profile'][metric])}")
-    result["loadavg_at_end"] = os.getloadavg()
+    finish(args, result)
 
+
+def finish(args, result):
+    result["loadavg_at_end"] = os.getloadavg()
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as fh:
