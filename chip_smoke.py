@@ -8,8 +8,9 @@ Phases, each of which exits non-zero on failure:
   2. build: the CUDA kernels are compiled from libviso_torch/csrc;
   3. kernel against plain: the L1 kernel equals its plain PyTorch version
      bitwise on integer-valued descriptors and within rtol 1e-5 on random
-     floats, at the main path's shape, the serving step's and a ragged one,
-     and both are timed with CUDA events;
+     floats, at the main path's shape, the serving step's and a ragged one;
+     kernel, plain version and torch.cdist(p=1), the one PyTorch call that
+     computes the same function, are timed with CUDA events at both shapes;
   4. main path: run_stereo_sequence on a KITTI-size synthetic sequence
      with metric l1 solves 19 of 20 frames through the kernel (one launch
      a frame) within the ATE bound of the JAX package's run;
@@ -32,8 +33,15 @@ Phases, each of which exits non-zero on failure:
      StreamPool gives each sequence its solo result; where PIL imports,
      `cli serve --pool 2` runs on a mini KITTI tree.
 
-The line before the last is the kernel table as JSON; the last line is
-{"ok": true, "device": {...}}.
+The line before the last is the kernel table as JSON: per kernel its
+launches on the main path, its time beside its bound (the larger of the
+bytes it must move over 3.35 TB/s and its FP32 instructions over the
+card's issue rate, 132 SMs x 128 lanes x 1.98 GHz; 67 TFLOP/s counts an
+FMA as two) and the share of the bound it reaches, the plain version's
+time and the library call's, at the main shape (3, 1280, 128) and the
+serving shape (12, 1280, 128).  Kernel times are device times: a sleep
+kernel holds the card while the host queues the timed launches.  The last
+line is {"ok": true, "device": {...}}.
 """
 
 import json
@@ -64,6 +72,8 @@ KITTI_SEQUENCE = dict(num_frames=20, num_points=900, seed=0, width=1241,
                       height=376, f=718.856, base=0.5371657, speed=0.8)
 MAIN_SHAPE = (3, 1280, 128)   # a frame's three match problems
 SERVE_SHAPE = (12, 1280, 128)  # a 4-stream serving step's twelve
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
+FP32_INSTR_PER_S = 132 * 128 * 1.98e9   # FP32 lanes x boost clock
 KEYS = ("ok", "num_lr", "num_circle", "num_inliers")
 STATS = ("frame", "ok", "num_kp1", "num_lr", "num_circle", "num_inliers")
 SERVE_LENGTHS = (20, 20, 16, 12)   # streams of seeds 0..3
@@ -93,15 +103,38 @@ def device_phase():
 
 
 def build_phase():
+    """Build the kernels; print ptxas' registers, shared memory and spills
+    of each kernel."""
+    import re
+
     from libviso_torch import _build
 
     t0 = time.perf_counter()
     so = _build.build()
     print(f"[build] {os.path.relpath(so, ROOT)} in "
           f"{time.perf_counter() - t0:.2f} s")
+    kernel = None
     for line in so.with_suffix(".log").read_text().splitlines():
-        if "Used" in line or "spill" in line:
-            print(f"[build] ptxas: {line.strip()}")
+        mangled = re.search(r"Compiling entry function '(\w+)'", line)
+        if mangled:
+            kernel = _kernel_name(mangled.group(1))
+        elif "Used" in line or "spill" in line:
+            print(f"[build] ptxas {kernel}: {line.split(':', 1)[-1].strip()}")
+
+
+def _kernel_name(mangled):
+    """The kernel's own name in an Itanium-mangled symbol, whose names
+    each follow their length: ..._cu_<hash>18fused_gated_kernelE..."""
+    for i in range(len(mangled)):
+        for k in (1, 2):
+            digits = mangled[i:i + k]
+            if not digits.isdigit() or mangled[i + k:i + k + 1].isdigit():
+                continue
+            name = mangled[i + k:i + k + int(digits)]
+            if name.endswith("_kernel") and \
+                    mangled[i + k + int(digits):].startswith("E"):
+                return name
+    return mangled
 
 
 def reset_launches():
@@ -121,10 +154,13 @@ def read_launches():
 
 
 def _time_ms(fn, reps=20):
+    """Device ms per call: a sleep kernel holds the card while the host
+    queues the timed calls, so host time between calls is not counted."""
     import torch
 
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(0.05 * 1.98e9))   # about 50 ms
     start.record()
     for _ in range(reps):
         fn()
@@ -166,19 +202,49 @@ def kernel_phase():
                   f"(max abs {err})")
         print(f"[kernel] {label} {s1} x {s2}: max abs err {err}")
 
-    a, b = make(MAIN_SHAPE, False), make(MAIN_SHAPE, False)
-    kernel = lambda: cm.l1_distance_matrix(a, b)  # noqa: E731
-    plain = lambda: cm.l1_distance_matrix_plain(a, b)  # noqa: E731
-    for fn in (kernel, plain):   # warm-up
-        fn()
-    torch.cuda.synchronize()
-    # in turns (plain, kernel, kernel, plain) inside one call
-    p1, k1, k2, p2 = (_time_ms(fn) for fn in (plain, kernel, kernel, plain))
-    ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
-    print(f"[kernel] {MAIN_SHAPE} x {MAIN_SHAPE}: kernel {ms:.4f} ms "
-          f"({k1:.4f}, {k2:.4f}), plain {plain_ms:.4f} ms "
-          f"({p1:.4f}, {p2:.4f}) per launch")
-    return max_err, ms, plain_ms
+    times = {}
+    for shape in (MAIN_SHAPE, SERVE_SHAPE):
+        a, b = make(shape, False), make(shape, False)
+        fns = {"plain": lambda: cm.l1_distance_matrix_plain(a, b),
+               "kernel": lambda: cm.l1_distance_matrix(a, b),
+               "library": lambda: torch.cdist(a, b, p=1)}
+        for fn in fns.values():   # warm-up
+            fn()
+        torch.cuda.synchronize()
+        # in turns (plain, kernel, library, library, kernel, plain)
+        ms = {k: [] for k in fns}
+        for k in list(fns) + list(fns)[::-1]:
+            ms[k].append(_time_ms(fns[k]))
+        P, N, D = shape
+        bound, by = bound_ms(2 * P * N * N * D, 4 * P * (2 * N * D + N * N))
+        t = {k: sum(v) / 2 for k, v in ms.items()}
+        times[shape] = {"ms": t["kernel"], "plain_ms": t["plain"],
+                        "library_ms": t["library"], "bound_ms": bound,
+                        "bound_by": by}
+        print(f"[kernel] {shape} x {shape}: kernel {t['kernel']:.4f} ms "
+              f"{ms['kernel']}, bound {bound:.4f} ms ({by}, share "
+              f"{bound / t['kernel']:.3f}); plain {t['plain']:.4f} ms "
+              f"{ms['plain']}; torch.cdist(p=1) {t['library']:.4f} ms "
+              f"{ms['library']} per call")
+    return max_err, times
+
+
+def bound_ms(ops, nbytes):
+    """The least time for the work: (ms, "operations" or "bytes"), the
+    larger of FP32 instructions over the issue rate and bytes over the
+    memory rate."""
+    t_ops, t_bytes = ops / FP32_INSTR_PER_S, nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def two_min_bound(B, N1, N2, D, pairs):
+    """Bound of a gated two-min over `pairs` (query, target) pairs: two
+    FP32 instructions per L1 accumulation and one per pair to fold it into
+    its row; each input read once (xy, validity, descriptors, F, use_epi)
+    and (best, second, idx) written once."""
+    nbytes = B * (N1 + N2) * (4 * D + 9) + 37 * B + 12 * B * N1
+    return bound_ms(pairs * (2 * D + 1), nbytes)
 
 
 def main_path_phase(seq):
@@ -309,7 +375,8 @@ def _match_problems(seqs, S, integer):
 
 def fused_kernel_phase(seqs):
     """Kernels #2 and #3 against their plain version; returns, per kernel,
-    the max abs error and the (ms, plain ms) at the serving shape."""
+    the max abs error, and per shape the mean ms of each timed call and the
+    sweep's live (query block, target tile) pairs."""
     import torch
 
     from libviso_torch.ops import cuda_matching as cm
@@ -318,7 +385,7 @@ def fused_kernel_phase(seqs):
 
     radius, thresh = 80.0, 1.0
     max_err = {"fused_gated_two_min": 0.0, "fused_sweep_two_min": 0.0}
-    times = {}
+    times, lives = {}, {}
     for S in (1, 4):
         pb = _match_problems(seqs, S, integer=True)
         args = list(pb.values())
@@ -424,8 +491,9 @@ def fused_kernel_phase(seqs):
         print(f"[fused] {shape} ms per call (two turns each): " + ", ".join(
             f"{k} {mean[k]:.4f} ({v[0]:.4f}, {v[1]:.4f})"
             for k, v in ms.items()))
-        times[S] = mean
-    return max_err, times
+        times[tuple(pb["q_d"].shape)] = mean
+        lives[tuple(pb["q_d"].shape)] = int(live.sum())
+    return max_err, times, lives
 
 
 def serving_phase(seqs):
@@ -551,10 +619,56 @@ def serve_cli_phase():
           f"{json.dumps(out)}")
 
 
+def kernels_line(launches, l1_err, l1_times, serve_launches, fused_err,
+                 fused_times, lives):
+    """The kernel table: per kernel its main-path launches and, at the
+    shape of the path that launched it, its time, bound and share, plain
+    and library times; ``shapes`` holds the same at both shapes."""
+    from libviso_torch.ops import fused_matching as fm
+
+    rows, cols = fm.tiling()    # the sweep's query block and target tile
+
+    def fused(name, key, shape):
+        B, N, D = shape
+        pairs = (lives[shape] * rows * cols if name == "fused_sweep_two_min"
+                 else B * N * N)
+        bound, by = two_min_bound(B, N, N, D, pairs)
+        t = fused_times[shape]
+        return {"ms": t[key], "plain_ms": t["plain"], "library_ms": None,
+                "bound_ms": bound, "bound_by": by}
+
+    def entry(name, source, replaces, n, err, per_shape, shape):
+        for row in per_shape.values():
+            row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": n, "max_abs_err": err,
+                **per_shape[shape],
+                "shapes": [{"shape": list(k), **v}
+                           for k, v in per_shape.items()]}
+
+    shapes = (MAIN_SHAPE, SERVE_SHAPE)
+    return {"kernels": [
+        entry("l1_distance_matrix", "libviso_torch/csrc/l1_distance.cu",
+              "libviso_tpu/ops/pallas_matching.py:53", launches, l1_err,
+              l1_times, MAIN_SHAPE),
+        entry("fused_gated_two_min", "libviso_torch/csrc/fused_two_min.cu",
+              "libviso_tpu/ops/pallas_fused_match.py:214",
+              serve_launches["fused_gated_two_min"],
+              fused_err["fused_gated_two_min"],
+              {k: fused("fused_gated_two_min", "fused", k) for k in shapes},
+              SERVE_SHAPE),
+        entry("fused_sweep_two_min", "libviso_torch/csrc/fused_sweep.cu",
+              "libviso_tpu/ops/pallas_fused_match.py:314",
+              serve_launches["fused_sweep_two_min"],
+              fused_err["fused_sweep_two_min"],
+              {k: fused("fused_sweep_two_min", "sweep", k) for k in shapes},
+              SERVE_SHAPE)]}
+
+
 def main():
     name, count = device_phase()
     build_phase()
-    max_err, ms, plain_ms = kernel_phase()
+    l1_err, l1_times = kernel_phase()
 
     from libviso_torch.synthetic import generate_sequence
 
@@ -563,29 +677,12 @@ def main():
     card_vs_cpu_phase(seq)
     entry_point_phase()
     seqs = _serve_sequences(seq)
-    fused_err, fused_times = fused_kernel_phase(seqs)
+    fused_err, fused_times, lives = fused_kernel_phase(seqs)
     serve_launches, _ = serving_phase(seqs)
     serve_cli_phase()
 
-    t12 = fused_times[4]
-    print(json.dumps({"kernels": [{
-        "name": "l1_distance_matrix", "route": "cuda",
-        "source": "libviso_torch/csrc/l1_distance.cu",
-        "replaces": "libviso_tpu/ops/pallas_matching.py:53",
-        "launches": launches, "max_abs_err": max_err, "ms": ms,
-        "plain_ms": plain_ms}, {
-        "name": "fused_gated_two_min", "route": "cuda",
-        "source": "libviso_torch/csrc/fused_two_min.cu",
-        "replaces": "libviso_tpu/ops/pallas_fused_match.py:214",
-        "launches": serve_launches["fused_gated_two_min"],
-        "max_abs_err": fused_err["fused_gated_two_min"],
-        "ms": t12["fused"], "plain_ms": t12["plain"]}, {
-        "name": "fused_sweep_two_min", "route": "cuda",
-        "source": "libviso_torch/csrc/fused_two_min.cu",
-        "replaces": "libviso_tpu/ops/pallas_fused_match.py:314",
-        "launches": serve_launches["fused_sweep_two_min"],
-        "max_abs_err": fused_err["fused_sweep_two_min"],
-        "ms": t12["sweep"], "plain_ms": t12["plain"]}]}))
+    print(json.dumps(kernels_line(launches, l1_err, l1_times, serve_launches,
+                                  fused_err, fused_times, lives)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}))
 

@@ -16,7 +16,7 @@ slots) lies a radius or more from the query block's.
 ``sorted_fused_two_min`` sorts both sides by x (a stable sort: invalid
 queries go to +1e6, invalid targets to -1e6), runs the sweep and maps the
 result back, so among equal distances the lowest *sorted* position wins.
-Both kernels are in ``csrc/fused_two_min.cu``.
+The kernels are ``csrc/fused_two_min.cu`` and ``csrc/fused_sweep.cu``.
 
 The device decides the route, as in ``ops/cuda_matching.py``: a CUDA
 tensor launches the kernel or raises, a CPU tensor takes the plain
@@ -110,13 +110,14 @@ def _library():
         sweep.argtypes = [ptr] * 13 + [i32] * 4 + [f32, f32, ptr]
         sweep.restype = i32
         rows, cols = ctypes.c_int(), ctypes.c_int()
-        lib.fused_two_min_tiling(ctypes.byref(rows), ctypes.byref(cols))
+        lib.fused_sweep_tiling(ctypes.byref(rows), ctypes.byref(cols))
         _fns.update(gated=gated, sweep=sweep, tiling=(rows.value, cols.value))
     return _fns
 
 
 def tiling():
-    """(query rows per block, target slots per tile) of the kernels."""
+    """(query rows per block, target slots per tile) of the sweep kernel,
+    the runs its boxes cover."""
     return _library()["tiling"]
 
 

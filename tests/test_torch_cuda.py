@@ -54,7 +54,11 @@ def _pair(shape1, shape2, integer, seed=0):
 @pytest.mark.parametrize("shapes,integer", [
     (((3, 1280, 128), (3, 1280, 128)), True),
     (((3, 1280, 128), (3, 1280, 128)), False),
+    (((12, 1280, 128), (12, 1280, 128)), True),
+    (((1, 1280, 128), (1, 1280, 128)), True),
+    (((2, 1000, 128), (2, 777, 128)), True),
     (((2, 1000, 128), (2, 777, 128)), False),
+    (((3, 1280, 124), (3, 1280, 124)), True),
     (((1, 5, 4), (1, 3, 4)), True),
 ])
 def test_kernel_matches_plain(shapes, integer):
@@ -69,6 +73,15 @@ def test_kernel_matches_plain(shapes, integer):
         assert torch.equal(out, ref)
     else:
         torch.testing.assert_close(out, ref, rtol=1e-5, atol=0.0)
+
+
+def test_kernel_matches_plain_on_zero_targets():
+    """Invalid slots carry zero descriptors: an all-invalid target side."""
+    require_cuda()
+    a, b = _pair((3, 1280, 128), (3, 1280, 128), True)
+    b.zero_()
+    assert torch.equal(cm.l1_distance_matrix(a, b),
+                       cm.l1_distance_matrix_plain(a, b))
 
 
 def test_kernel_takes_unbatched_descriptors():
@@ -137,7 +150,10 @@ FUSED = [("fused_gated_two_min", fm.fused_gated_two_min, None),
 
 @pytest.mark.parametrize("kernel", FUSED, ids=lambda k: k[0])
 @pytest.mark.parametrize("shape", [(3, 1280, 1280, 128),
-                                   (2, 1000, 777, 128), (1, 5, 3, 4)])
+                                   (12, 1280, 1280, 128),
+                                   (1, 1280, 1280, 128),
+                                   (2, 1000, 777, 128), (3, 1280, 1280, 124),
+                                   (1, 5, 3, 4)])
 def test_fused_kernels_match_plain_bitwise(kernel, shape):
     require_cuda()
     name, fn, plain_sweep = kernel
@@ -154,7 +170,53 @@ def test_fused_kernels_match_plain_bitwise(kernel, shape):
         assert torch.equal(x, y)
     if shape[1] >= 1000:        # a real workload, not empty rows
         assert torch.isfinite(got[0]).float().mean() > 0.5
-        assert torch.isfinite(got[0][args[7]]).float().mean() > 0.5
+        if shape[0] > 1:        # the Sampson problems too
+            assert torch.isfinite(got[0][args[7]]).float().mean() > 0.5
+
+
+@pytest.mark.parametrize("kernel", FUSED, ids=lambda k: k[0])
+def test_fused_kernels_on_all_invalid_targets(kernel):
+    require_cuda()
+    name, fn, _ = kernel
+    args = _match_problem(3, 1280, 1280, 128)
+    args[4] = torch.zeros_like(args[4])
+    best, second, idx = fn(*args, 1.0, 80.0)
+    assert torch.isinf(best).all() and torch.isinf(second).all()
+    assert (idx == -1).all()
+    want = fm.fused_gated_two_min_plain(*args, 1.0, 80.0)
+    for x, y in zip((best, second, idx), want):
+        assert torch.equal(x, y)
+
+
+def test_fused_gated_tie_across_target_splits_goes_to_lowest_column():
+    """Targets 640-1279 repeat targets 0-639 (descriptors and positions),
+    so every row's best distance is tied between a column of the first
+    half and one of the second, which lie in different CTAs of a cluster
+    whatever its size: the merge must keep the lower column."""
+    require_cuda()
+    args = _match_problem(3, 1280, 1280, 128)
+    for k in (3, 4, 5):
+        args[k][:, 640:] = args[k][:, :640]
+    got = fm.fused_gated_two_min(*args, 1.0, 80.0)
+    want = fm.fused_gated_two_min_plain(*args, 1.0, 80.0)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+    has = got[2] >= 0
+    assert has.float().mean() > 0.5
+    assert (got[2][has] < 640).all()
+    assert torch.equal(got[0][has], got[1][has])   # the tie itself
+
+
+def test_fused_gated_raises_on_a_refused_launch():
+    """D = 2048 asks for 256 KB of resident query descriptors, more shared
+    memory than a CTA may have: the launch is refused and the wrapper
+    raises with its cudaError_t."""
+    require_cuda()
+    args = _match_problem(1, 64, 64, 2048)
+    before = fm.launches["fused_gated_two_min"]
+    with pytest.raises(RuntimeError, match="cudaError_t"):
+        fm.fused_gated_two_min(*args, 1.0, 80.0)
+    assert fm.launches["fused_gated_two_min"] == before
 
 
 def test_fused_kernels_reject_what_they_do_not_take():

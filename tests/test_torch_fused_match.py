@@ -130,6 +130,52 @@ def test_empty_targets_and_ragged_shapes(rng):
     assert (idx == -1).all()
 
 
+def _fold(a, b):
+    """Merge two partial (best, second, idx) of the same rows in (value,
+    column) order, as the CUDA kernel merges its target splits."""
+    a_wins = (a[0] < b[0]) | ((a[0] == b[0]) & (a[2] < b[2]))
+    win = [torch.where(a_wins, x, y) for x, y in zip(a, b)]
+    lose_best = torch.where(a_wins, b[0], a[0])
+    second = torch.minimum(lose_best, torch.minimum(a[1], b[1]))
+    return win[0], second, win[2]
+
+
+@pytest.mark.parametrize("chunks", [1, 2, 3, 4, 5, 8])
+def test_target_split_folds_to_the_unsplit_result(rng, chunks):
+    """The invariant the gated kernel's split of the target axis rests on:
+    the plain version run over target chunks, the chunks' partials folded
+    by (value, column) in any order, equals the unsplit plain version
+    bitwise.  Descriptors in {0, 1, 2} tie often; the third quarter of the
+    targets repeats the first, so ties cross chunk boundaries; rows whose
+    candidates all lie in one chunk are empty in the others, and invalid
+    queries are empty in all."""
+    prob = _problem(rng, integer=True)
+    args = [to_torch(x)[None] for x in prob] + [torch.tensor([True])]
+    for k in (3, 4, 5):
+        args[k][:, N // 2:3 * N // 4] = args[k][:, :N // 4]
+    whole = fm.fused_gated_two_min(*args, THRESH, RADIUS)
+    bounds = np.linspace(0, N, chunks + 1).astype(int)
+    parts = []
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        part = fm.fused_gated_two_min(*args[:3], *(a[:, lo:hi] for a in
+                                                   args[3:6]),
+                                      *args[6:], THRESH, RADIUS)
+        parts.append((part[0], part[1],
+                      torch.where(part[2] >= 0, part[2] + int(lo), -1)))
+    order = rng.permutation(chunks)
+    folded = parts[order[0]]
+    for k in order[1:]:
+        folded = _fold(folded, parts[k])
+    for x, y in zip(folded, whole):
+        assert torch.equal(x, y.to(x.dtype))
+    has = torch.isfinite(whole[0])
+    assert 10 < int(has.sum()) < N
+    if chunks > 1:   # some rows are empty in some chunk but not in all
+        empty = torch.stack([~torch.isfinite(p[0]) for p in parts])
+        assert (empty.any(0) & has).any()
+        assert (whole[0][has] == whole[1][has]).any()      # ties
+
+
 def _d(valid):
     return np.zeros((len(valid), D), np.float32)
 
