@@ -17,19 +17,21 @@ Phases, each of which exits non-zero on failure:
   5. card against CPU: the first 4 frames give the same per-frame results
      on the card as through the port's plain versions on the CPU;
   6. entry point: `python -m libviso_torch.cli synth --metric l1` runs;
-  7. fused kernels against plain: the fused gated matcher and its sweep
-     variant, and the L1 kernel, equal their plain versions bitwise (best,
-     second, idx; distances) on the detector output of KITTI-size frames,
-     the 3 match problems of one stream and the 12 of four, and the fused
-     kernels within rtol 1e-5 on float descriptors; every row where the
-     sweep's idx differs from the dense route's is an exact distance tie;
-     kernels, plain version and the matcher routes are timed with CUDA
-     events;
+  7. fused kernels against plain: the fused gated matcher, the sweep
+     route (order kernel, then sweep kernel) and the L1 kernel equal their
+     plain versions bitwise (best, second, idx; permutations and boxes;
+     distances) on the detector output of KITTI-size frames, the 3 match
+     problems of one stream and the 12 of four, and the fused kernels
+     within rtol 1e-5 on float descriptors; every row where the sweep's
+     idx differs from the dense route's is an exact distance tie; the
+     sweep route is two device launches by torch.profiler; kernels, plain
+     versions and the matcher routes are timed with CUDA events, in
+     turns;
   8. serving: run_multistream on 4 KITTI-size streams (lengths 20, 20, 16,
      12) under metric l1 with each matcher backend: every stream's
      discrete per-frame stats equal its solo run on the card, fused equals
-     dense, the backend's kernel launches once per timestep, and the
-     20-frame streams solve 19/19 within the phase-4 ATE bound; a 2-slot
+     dense, each of the backend's kernels launches once per timestep, and
+     the 20-frame streams solve 19/19 within the phase-4 ATE bound; a 2-slot
      StreamPool gives each sequence its solo result; where PIL imports,
      `cli serve --pool 2` runs on a mini KITTI tree.
 
@@ -39,12 +41,18 @@ bytes it must move over 3.35 TB/s and its FP32 instructions over the
 card's issue rate, 132 SMs x 128 lanes x 1.98 GHz; 67 TFLOP/s counts an
 FMA as two) and the share of the bound it reaches, the plain version's
 time and the library call's, at the main shape (3, 1280, 128) and the
-serving shape (12, 1280, 128).  Kernel times are device times: a sleep
+serving shape (12, 1280, 128).  The sweep's entry is its whole route
+(`ms`: order kernel and sweep kernel, `order_ms` and `sweep_ms` each
+alone, `fused_ms` kernel #2 in the same turns, `route_launches` by
+torch.profiler), bounded by the (query, target) pairs that pass the
+position and validity gates, whatever the tiling; its (block, window)
+pairs and skip share beside.  Kernel times are device times: a sleep
 kernel holds the card while the host queues the timed launches.  The last
 line is {"ok": true, "device": {...}}.
 """
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -77,9 +85,9 @@ FP32_INSTR_PER_S = 132 * 128 * 1.98e9   # FP32 lanes x boost clock
 KEYS = ("ok", "num_lr", "num_circle", "num_inliers")
 STATS = ("frame", "ok", "num_kp1", "num_lr", "num_circle", "num_inliers")
 SERVE_LENGTHS = (20, 20, 16, 12)   # streams of seeds 0..3
-BACKEND_KERNEL = {"dense": "l1_distance_matrix",
-                  "fused": "fused_gated_two_min",
-                  "sweep": "fused_sweep_two_min"}
+BACKEND_KERNELS = {"dense": ("l1_distance_matrix",),
+                   "fused": ("fused_gated_two_min",),
+                   "sweep": ("sweep_order", "fused_sweep_two_min")}
 
 
 def check(cond, msg):
@@ -373,10 +381,29 @@ def _match_problems(seqs, S, integer):
         use_epi=torch.tensor([True, False, False], device="cuda").repeat(S))
 
 
+def device_launches(fn):
+    """The names of the device activities (kernels, copies, fills) of one
+    call of fn, by torch.profiler, after a call that warms it up."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
 def fused_kernel_phase(seqs):
-    """Kernels #2 and #3 against their plain version; returns, per kernel,
-    the max abs error, and per shape the mean ms of each timed call and the
-    sweep's live (query block, target tile) pairs."""
+    """Kernels #2 and #3 (the order and sweep kernels) against their plain
+    versions; returns, per kernel, the max abs error, and per shape the
+    mean ms of each timed call and the sweep's counts: the (query block,
+    window) pairs it computes and their number without the skip, the
+    pairs that pass the position and validity gates, and the route's
+    device launches."""
     import torch
 
     from libviso_torch.ops import cuda_matching as cm
@@ -384,8 +411,9 @@ def fused_kernel_phase(seqs):
     from libviso_torch.ops import matching as mt
 
     radius, thresh = 80.0, 1.0
-    max_err = {"fused_gated_two_min": 0.0, "fused_sweep_two_min": 0.0}
-    times, lives = {}, {}
+    max_err = {"fused_gated_two_min": 0.0, "sweep_order": 0.0,
+               "fused_sweep_two_min": 0.0}
+    times, counts = {}, {}
     for S in (1, 4):
         pb = _match_problems(seqs, S, integer=True)
         args = list(pb.values())
@@ -406,6 +434,13 @@ def fused_kernel_phase(seqs):
             check(all(torch.equal(x, y) for x, y in zip(a, b)),
                   f"{name} {shape}: kernel != plain bitwise on detector "
                   f"output")
+        # the order kernel: permutations and boxes
+        sides = (pb["q_xy"], pb["q_valid"], pb["t_xy"], pb["t_valid"])
+        order = fm.sweep_order(*sides)
+        check(all(torch.equal(x, y) for x, y in
+                  zip(order, fm.sweep_order_plain(*sides))),
+              f"sweep_order {shape}: kernel != plain bitwise on detector "
+              f"output")
         # the dense route's kernel on the same problems
         l1 = cm.l1_distance_matrix(pb["q_d"], pb["t_d"])
         check(torch.equal(l1, cm.l1_distance_matrix_plain(pb["q_d"],
@@ -425,20 +460,32 @@ def fused_kernel_phase(seqs):
               "a row where the sweep's idx differs from dense's is not an "
               "exact distance tie")
         check(torch.equal(sgot[0], got[0]), "sweep best != dense best")
-        # the sweep's box test on the sorted slots
-        srt, _, _ = fm.sort_slots(*args[:6])
-        rows, cols = fm.tiling()
-        qbox = fm.sweep_boxes(srt[0], srt[1], rows)
-        tbox = fm.sweep_boxes(srt[3], srt[4], cols)
-        live = fm.sweep_live_tiles(qbox, tbox, radius)
-        total = qbox.shape[-1] * tbox.shape[-1] * 3 * S
-        skip = 1.0 - float(live.sum()) / total
-        print(f"[fused] {shape}: gated, sweep and l1_distance_matrix == "
-              f"plain bitwise on detector output of uint8 frames (integer "
-              f"descriptors); "
+        # the sweep's windows, and the pairs these inputs need: those
+        # that pass the position and validity gates (Sampson off)
+        N2, W = pb["t_xy"].shape[1], fm.SWEEP_WINDOW
+        rows, split = fm.sweep_plan(*pb["q_valid"].shape)
+        c0, c1 = fm.sweep_columns(order[2], order[3], radius, N2, rows=rows)
+        live = int(((c1 - c0 + W - 1) // W).sum())
+        total = c0.numel() * -(-N2 // W)
+        pairs = int(fm.gate(*sides[:2], *sides[2:], pb["F"],
+                            torch.zeros_like(pb["use_epi"]), thresh,
+                            radius).sum())
+        names = device_launches(
+            lambda: fm.sorted_fused_two_min(*args, thresh, radius))
+        check(len(names) == 2, f"sorted_fused_two_min {shape}: "
+              f"{len(names)} device launches, not 2: {names}")
+        counts[shape] = {"windows": live, "windows_unskipped": total,
+                         "pairs": pairs, "route_launches": len(names)}
+        print(f"[fused] {shape}: gated, sweep route, order kernel and "
+              f"l1_distance_matrix == plain bitwise on detector output of "
+              f"uint8 frames (integer descriptors); "
               f"{differ.shape[0]} sweep rows differ from "
-              f"dense, all exact ties; sweep computes {int(live.sum())} of "
-              f"{total} (block, tile) pairs, skip share {skip:.4f}")
+              f"dense, all exact ties; sweep computes {live} (block, "
+              f"window) pairs of {rows} rows x {W} columns in clusters of "
+              f"{split} CTAs, of {total} without the skip, skip share "
+              f"{1.0 - live / total:.4f}; {pairs} pairs pass the "
+              f"position and validity gates; the route is {len(names)} "
+              f"device launches by torch.profiler: {names}")
         # the float frames' detector output: sums in another order than
         # the plain version's, so best and second agree within rtol 1e-5
         # and idx wherever the two smallest are not within that of a tie
@@ -462,17 +509,20 @@ def fused_kernel_phase(seqs):
             max_err[name] = max(max_err[name], err)
             print(f"[fused] {name} {shape} float descriptors: max abs err "
                   f"{err}")
-        # times: kernels and plain in turns ("sweep" on sorted slots,
-        # with its boxes; "sorted sweep" also sorts and maps back), and the
-        # three matcher routes
+        # times, in turns: plain versions, kernel #2, the order and sweep
+        # kernels alone and the whole sweep route, and the three matcher
+        # routes
         fns = {
             "plain": lambda: fm.fused_gated_two_min_plain(*args, thresh,
                                                           radius),
             "fused": lambda: fm.fused_gated_two_min(*args, thresh, radius),
-            "sweep": lambda: fm.fused_sweep_two_min(
-                *srt, pb["F"], pb["use_epi"], thresh, radius),
-            "sorted sweep": lambda: fm.sorted_fused_two_min(*args, thresh,
-                                                            radius),
+            "order plain": lambda: fm.sweep_order_plain(*sides),
+            "order": lambda: fm.sweep_order(*sides),
+            "sweep": lambda: fm.swept_two_min(*args, order, thresh, radius),
+            "sweep route": lambda: fm.sorted_fused_two_min(*args, thresh,
+                                                           radius),
+            "sweep route plain": lambda: fm.sorted_fused_two_min(
+                *args, thresh, radius, sweep=fm.fused_sweep_two_min_plain),
         }
         for backend in ("dense", "fused", "sweep"):
             fns[f"route {backend}"] = (
@@ -483,17 +533,15 @@ def fused_kernel_phase(seqs):
         for fn in fns.values():
             fn()
         torch.cuda.synchronize()
-        order = list(fns) + list(fns)[::-1]
         ms = {k: [] for k in fns}
-        for k in order:
+        for k in list(fns) + list(fns)[::-1]:
             ms[k].append(_time_ms(fns[k], reps=10))
         mean = {k: sum(v) / len(v) for k, v in ms.items()}
         print(f"[fused] {shape} ms per call (two turns each): " + ", ".join(
             f"{k} {mean[k]:.4f} ({v[0]:.4f}, {v[1]:.4f})"
             for k, v in ms.items()))
-        times[tuple(pb["q_d"].shape)] = mean
-        lives[tuple(pb["q_d"].shape)] = int(live.sum())
-    return max_err, times, lives
+        times[shape] = mean
+    return max_err, times, counts
 
 
 def serving_phase(seqs):
@@ -523,10 +571,11 @@ def serving_phase(seqs):
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         counts = read_launches()
-        name = BACKEND_KERNEL[backend]
-        launches[name] = counts[name]
-        check(counts[name] == T, f"{backend}: {name} launched "
-              f"{counts[name]} times in {T} timesteps")
+        for name in BACKEND_KERNELS[backend]:
+            launches[name] = counts[name]
+            check(counts[name] == T, f"{backend}: {name} launched "
+                  f"{counts[name]} times in {T} timesteps")
+        name = " and ".join(BACKEND_KERNELS[backend])
         fps[backend] = sum(SERVE_LENGTHS) / dt
         for s, (solo, got) in enumerate(zip(solos, multi)):
             check([{k: x[k] for k in STATS} for x in got.stats]
@@ -542,7 +591,7 @@ def serving_phase(seqs):
                       f"{backend}: stream {s} solved {solved[s]}/19, ATE "
                       f"{ates[s]} m (bound {ATE_BOUND} m)")
         print(f"[serve] {backend}: 4 streams == solo runs on every discrete "
-              f"stat; {name} {counts[name]} launches in {T} timesteps; "
+              f"stat; {name} {T} launches each in {T} timesteps; "
               f"solved {solved}, ATE {ates}; {fps[backend]:.2f} aggregate "
               f"frames/s ({sum(SERVE_LENGTHS)} frames in {dt:.3f} s)")
     check(stats["fused"] == stats["dense"],
@@ -620,22 +669,43 @@ def serve_cli_phase():
 
 
 def kernels_line(launches, l1_err, l1_times, serve_launches, fused_err,
-                 fused_times, lives):
+                 fused_times, counts):
     """The kernel table: per kernel its main-path launches and, at the
     shape of the path that launched it, its time, bound and share, plain
     and library times; ``shapes`` holds the same at both shapes."""
     from libviso_torch.ops import fused_matching as fm
 
-    rows, cols = fm.tiling()    # the sweep's query block and target tile
-
-    def fused(name, key, shape):
+    def gated(shape):
         B, N, D = shape
-        pairs = (lives[shape] * rows * cols if name == "fused_sweep_two_min"
-                 else B * N * N)
-        bound, by = two_min_bound(B, N, N, D, pairs)
+        bound, by = two_min_bound(B, N, N, D, B * N * N)
         t = fused_times[shape]
-        return {"ms": t[key], "plain_ms": t["plain"], "library_ms": None,
+        return {"ms": t["fused"], "plain_ms": t["plain"], "library_ms": None,
                 "bound_ms": bound, "bound_by": by}
+
+    def order(shape):
+        # read xy and validity, write both permutations and the boxes; at
+        # least log2(N!) ~ N log2 N comparisons a side
+        B, N, _ = shape
+        n_boxes = sum(-(-N // k) for k in fm.SWEEP_TILING)
+        bound, by = bound_ms(2 * B * N * math.log2(N),
+                             B * (2 * N * 9 + 2 * N * 4 + 16 * n_boxes))
+        t = fused_times[shape]
+        return {"ms": t["order"], "plain_ms": t["order plain"],
+                "library_ms": None, "bound_ms": bound, "bound_by": by}
+
+    def sweep(shape):
+        # the route: the pairs these inputs need, at any tiling
+        B, N, D = shape
+        c = counts[shape]
+        bound, by = two_min_bound(B, N, N, D, c["pairs"])
+        t = fused_times[shape]
+        return {"ms": t["sweep route"], "order_ms": t["order"],
+                "sweep_ms": t["sweep"], "fused_ms": t["fused"],
+                "plain_ms": t["sweep route plain"], "library_ms": None,
+                "bound_ms": bound, "bound_by": by,
+                "route_launches": c["route_launches"], "pairs": c["pairs"],
+                "windows": c["windows"],
+                "skip_share": 1.0 - c["windows"] / c["windows_unskipped"]}
 
     def entry(name, source, replaces, n, err, per_shape, shape):
         for row in per_shape.values():
@@ -655,14 +725,16 @@ def kernels_line(launches, l1_err, l1_times, serve_launches, fused_err,
               "libviso_tpu/ops/pallas_fused_match.py:214",
               serve_launches["fused_gated_two_min"],
               fused_err["fused_gated_two_min"],
-              {k: fused("fused_gated_two_min", "fused", k) for k in shapes},
-              SERVE_SHAPE),
+              {k: gated(k) for k in shapes}, SERVE_SHAPE),
+        entry("sweep_order", "libviso_torch/csrc/sweep_order.cu",
+              "libviso_tpu/ops/pallas_fused_match.py:375",
+              serve_launches["sweep_order"], fused_err["sweep_order"],
+              {k: order(k) for k in shapes}, SERVE_SHAPE),
         entry("fused_sweep_two_min", "libviso_torch/csrc/fused_sweep.cu",
               "libviso_tpu/ops/pallas_fused_match.py:314",
               serve_launches["fused_sweep_two_min"],
               fused_err["fused_sweep_two_min"],
-              {k: fused("fused_sweep_two_min", "sweep", k) for k in shapes},
-              SERVE_SHAPE)]}
+              {k: sweep(k) for k in shapes}, SERVE_SHAPE)]}
 
 
 def main():
@@ -677,12 +749,12 @@ def main():
     card_vs_cpu_phase(seq)
     entry_point_phase()
     seqs = _serve_sequences(seq)
-    fused_err, fused_times, lives = fused_kernel_phase(seqs)
+    fused_err, fused_times, counts = fused_kernel_phase(seqs)
     serve_launches, _ = serving_phase(seqs)
     serve_cli_phase()
 
     print(json.dumps(kernels_line(launches, l1_err, l1_times, serve_launches,
-                                  fused_err, fused_times, lives)))
+                                  fused_err, fused_times, counts)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}))
 

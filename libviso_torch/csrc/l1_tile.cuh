@@ -1,4 +1,5 @@
-// The L1 tile engine shared by l1_distance.cu and fused_two_min.cu.
+// The L1 tile engine shared by l1_distance.cu, fused_two_min.cu and
+// fused_sweep.cu.
 //
 // A CTA computes sums sum_d |a[row, d] - b[col, d]| for a tile of rows and
 // columns.  Descriptors reach shared memory in slices of 32 values by
@@ -73,6 +74,29 @@ __device__ __forceinline__ void stage(const float* __restrict__ src,
     const bool in = c_in && row0 + r0 + r < rows;
     cp_async16(dst + (r0 + r) * PITCH + c, in ? p : src, in);
     p += static_cast<size_t>(kStep) * D;
+  }
+}
+
+// stage() for rows gathered through an index: staged row r is row
+// row_of[r] of src (row_of in shared memory; a negative entry stages a
+// zero row).  The copies are those of stage(), 16 bytes a thread.
+template <int ROWS, int THREADS, int PITCH = kPitch>
+__device__ __forceinline__ void stage_rows(const float* __restrict__ src,
+                                           const int* row_of, int D, int d0,
+                                           float4* dst) {
+  static_assert(THREADS % kChunks == 0 && ROWS % (THREADS / kChunks) == 0,
+                "a slice must split evenly over the threads");
+  constexpr int kStep = THREADS / kChunks;   // rows per pass
+  const int c = threadIdx.x % kChunks;
+  const int r0 = threadIdx.x / kChunks;
+  const bool c_in = d0 + 4 * c < D;
+#pragma unroll
+  for (int r = 0; r < ROWS; r += kStep) {
+    const int row = row_of[r0 + r];
+    const bool in = c_in && row >= 0;
+    cp_async16(dst + (r0 + r) * PITCH + c,
+               in ? src + static_cast<size_t>(row) * D + d0 + 4 * c : src,
+               in);
   }
 }
 

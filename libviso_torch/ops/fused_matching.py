@@ -1,4 +1,4 @@
-"""Fused gated matching: the two CUDA kernels and their plain versions.
+"""Fused gated matching: the three CUDA kernels and their plain versions.
 
 For each query row of B match problems, the gated (best, second, argmin)
 of the L1 descriptor distance over all target slots, with no (B, N1, N2)
@@ -10,13 +10,17 @@ F.  A tie goes to the lowest target column; a row with no candidate gives
 
 ``fused_gated_two_min`` replaces the Pallas kernel
 ``libviso_tpu/ops/pallas_fused_match.py::fused_gated_two_min``, and
-``fused_sweep_two_min`` its ``fused_sweep_two_min``: the same result on
-x-sorted slots, skipping the target tiles whose bounding box (of valid
-slots) lies a radius or more from the query block's.
-``sorted_fused_two_min`` sorts both sides by x (a stable sort: invalid
-queries go to +1e6, invalid targets to -1e6), runs the sweep and maps the
-result back, so among equal distances the lowest *sorted* position wins.
-The kernels are ``csrc/fused_two_min.cu`` and ``csrc/fused_sweep.cu``.
+``sorted_fused_two_min`` its ``sorted_fused_two_min``: the same result with
+both sides sorted by x (a stable sort: invalid queries keyed at +1e6,
+invalid targets at -1e6), skipping the runs of sorted targets whose
+bounding box (of valid slots) lies a radius or more from the query
+block's, so among equal distances the lowest *sorted* target wins.  On
+the card that route is two launches: the order kernel
+(``csrc/sweep_order.cu``: the permutations and the boxes) and the sweep
+kernel (``csrc/fused_sweep.cu``), which reads the slots through the
+permutations and writes the result at the original slots.
+``fused_sweep_two_min`` takes slots already sorted.  The gated kernel is
+``csrc/fused_two_min.cu``.
 
 The device decides the route, as in ``ops/cuda_matching.py``: a CUDA
 tensor launches the kernel or raises, a CPU tensor takes the plain
@@ -37,10 +41,19 @@ from libviso_torch import _build
 from libviso_torch.ops.cuda_matching import l1_distance_matrix_plain
 
 # kernel launches by kernel; callers may reset the counts to 0 before a run
-launches = {"fused_gated_two_min": 0, "fused_sweep_two_min": 0}
+launches = {"fused_gated_two_min": 0, "sweep_order": 0,
+            "fused_sweep_two_min": 0}
 
 BIG = 3.0e38      # "no candidate" sentinel of the Pallas kernels
 _TINY = 1e-30     # Sampson denominator floor
+# the runs the order's boxes cover (sorted query rows, target slots) and
+# the target columns per window of the sweep kernel's work
+# (csrc/fused_sweep.cu: kQueryBox, kBox, kCols); its query blocks are one
+# or two query boxes (``sweep_plan``)
+SWEEP_TILING = (32, 16)
+SWEEP_WINDOW = 128
+# the most slots a side the order kernel sorts (one CTA, csrc/sweep_order.cu)
+MAX_SWEEP_SLOTS = 8192
 _fns = {}
 
 
@@ -94,8 +107,8 @@ def fused_gated_two_min_plain(q_xy, q_valid, q_d, t_xy, t_valid, t_d, F,
             torch.where(none, -1, idx[..., 0]).to(torch.int32))
 
 
-# the sweep's plain version: the box test skips only tiles without a
-# candidate, so on the same (sorted) slots it computes the same result
+# the sweep's plain version: the box test skips only target runs without
+# a candidate, so on the same (sorted) slots it computes the same result
 fused_sweep_two_min_plain = fused_gated_two_min_plain
 
 
@@ -106,29 +119,31 @@ def _library():
         gated = lib.fused_gated_two_min_launch
         gated.argtypes = [ptr] * 11 + [i32] * 4 + [f32, f32, ptr]
         gated.restype = i32
+        order = lib.sweep_order_launch
+        order.argtypes = [ptr] * 8 + [i32] * 6 + [ptr]
+        order.restype = i32
         sweep = lib.fused_sweep_two_min_launch
-        sweep.argtypes = [ptr] * 13 + [i32] * 4 + [f32, f32, ptr]
+        sweep.argtypes = [ptr] * 15 + [i32] * 4 + [f32, f32, ptr]
         sweep.restype = i32
-        rows, cols = ctypes.c_int(), ctypes.c_int()
-        lib.fused_sweep_tiling(ctypes.byref(rows), ctypes.byref(cols))
-        _fns.update(gated=gated, sweep=sweep, tiling=(rows.value, cols.value))
+        tiling = [ctypes.c_int() for _ in range(3)]
+        lib.fused_sweep_tiling(*map(ctypes.byref, tiling))
+        built = (tuple(x.value for x in tiling), lib.sweep_order_max_slots())
+        want = ((*SWEEP_TILING, SWEEP_WINDOW), MAX_SWEEP_SLOTS)
+        if built != want:
+            raise RuntimeError(f"the kernels were built for sweep tiling and "
+                               f"slot limit {built}, this module expects "
+                               f"{want}")
+        plan = lib.fused_sweep_plan
+        plan.argtypes = [i32, i32, ptr, ptr]
+        plan.restype = i32
+        _fns.update(gated=gated, order=order, sweep=sweep, plan=plan)
     return _fns
 
 
-def tiling():
-    """(query rows per block, target slots per tile) of the sweep kernel,
-    the runs its boxes cover."""
-    return _library()["tiling"]
-
-
-def _check(q_xy, q_valid, q_d, t_xy, t_valid, t_d, F, use_epi):
-    """Raise on what the kernels do not take; returns (B, N1, N2, D)."""
-    floats = {"q_xy": q_xy, "q_d": q_d, "t_xy": t_xy, "t_d": t_d, "F": F}
-    bools = {"q_valid": q_valid, "t_valid": t_valid, "use_epi": use_epi}
+def _check_tensors(device, floats, bools):
     for name, x in {**floats, **bools}.items():
-        if x.device != q_d.device:
-            raise ValueError(f"{name} on {x.device}, descriptors on "
-                             f"{q_d.device}")
+        if x.device != device:
+            raise ValueError(f"{name} on {x.device}, expected {device}")
         if not x.is_contiguous():
             raise ValueError(f"fused kernels take contiguous tensors; "
                              f"{name} is not")
@@ -139,18 +154,29 @@ def _check(q_xy, q_valid, q_d, t_xy, t_valid, t_d, F, use_epi):
     for name, x in bools.items():
         if x.dtype != torch.bool:
             raise TypeError(f"fused kernels take bool {name}, got {x.dtype}")
+
+
+def _check_shapes(tensors, expect):
+    for name, shape in expect.items():
+        got = tuple(tensors[name].shape)
+        if got != shape:
+            raise ValueError(f"{name} has shape {got}, expected {shape}")
+
+
+def _check(q_xy, q_valid, q_d, t_xy, t_valid, t_d, F, use_epi):
+    """Raise on what the kernels do not take; returns (B, N1, N2, D)."""
+    floats = {"q_xy": q_xy, "q_d": q_d, "t_xy": t_xy, "t_d": t_d, "F": F}
+    bools = {"q_valid": q_valid, "t_valid": t_valid, "use_epi": use_epi}
+    _check_tensors(q_d.device, floats, bools)
     if q_d.dim() != 3 or t_d.dim() != 3:
         raise ValueError(f"fused kernels take (B, N, D) descriptors, got "
                          f"{tuple(q_d.shape)}, {tuple(t_d.shape)}")
     B, N1, D = q_d.shape
     N2 = t_d.shape[1]
-    expect = {"q_xy": (B, N1, 2), "q_valid": (B, N1), "t_xy": (B, N2, 2),
-              "t_valid": (B, N2), "t_d": (B, N2, D), "F": (B, 3, 3),
-              "use_epi": (B,)}
-    for name, shape in expect.items():
-        got = tuple({**floats, **bools}[name].shape)
-        if got != shape:
-            raise ValueError(f"{name} has shape {got}, expected {shape}")
+    _check_shapes({**floats, **bools}, {
+        "q_xy": (B, N1, 2), "q_valid": (B, N1), "t_xy": (B, N2, 2),
+        "t_valid": (B, N2), "t_d": (B, N2, D), "F": (B, 3, 3),
+        "use_epi": (B,)})
     if D % 4:
         raise ValueError(f"fused kernels need D % 4 == 0, got D={D}")
     if B > 65535 or max(N1, N2) * max(D, 2) >= 2**31:
@@ -160,27 +186,35 @@ def _check(q_xy, q_valid, q_d, t_xy, t_valid, t_d, F, use_epi):
     return B, N1, N2, D
 
 
+def _check_slots(N1, N2):
+    if max(N1, N2) > MAX_SWEEP_SLOTS:
+        raise ValueError(f"the sweep route sorts at most {MAX_SWEEP_SLOTS} "
+                         f"slots a side (one CTA of the order kernel); got "
+                         f"N1={N1}, N2={N2}")
+
+
 def _outputs(B, N1, device):
     return (torch.empty((B, N1), dtype=torch.float32, device=device),
             torch.empty((B, N1), dtype=torch.float32, device=device),
             torch.empty((B, N1), dtype=torch.int32, device=device))
 
 
-def _run(name, args, sizes, radius, sampson_thresh, device):
+def _run(name, args, device):
+    """Launch kernel `name` on the current stream of `device`: tensors are
+    passed as pointers, the stream last; raise on a refused launch."""
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = _library()[name](*(x.data_ptr() if isinstance(x, torch.Tensor)
-                                else x for x in args),
-                              *sizes, radius, sampson_thresh, stream)
+                                else x for x in args), stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {rc}")
 
 
-def _device_route(q_d):
-    if q_d.device.type == "cpu":
+def _device_route(x):
+    if x.device.type == "cpu":
         return False
-    if q_d.device.type != "cuda":
-        raise ValueError(f"no fused matcher kernel for device {q_d.device}")
+    if x.device.type != "cuda":
+        raise ValueError(f"no fused matcher kernel for device {x.device}")
     return True
 
 
@@ -204,16 +238,24 @@ def fused_gated_two_min(q_xy, q_valid, q_d, t_xy, t_valid, t_d, F, use_epi,
     if best.numel() == 0:
         return best, second, idx
     _run("gated", (q_xy, q_valid, q_d, t_xy, t_valid, t_d, F, use_epi, best,
-                   second, idx), (B, N1, N2, D), radius, sampson_thresh,
+                   second, idx, B, N1, N2, D, radius, sampson_thresh),
          q_d.device)
     launches["fused_gated_two_min"] += 1
     return best, second, idx
 
 
-def sweep_boxes(xy, valid, block):
+def _take(x, perm):
+    """x (B, N, ...) in the order perm (B, N)."""
+    perm = perm.long()
+    return torch.take_along_dim(x, perm if x.dim() == 2 else perm[..., None],
+                                dim=1)
+
+
+def _boxes(xy, valid, block):
     """(B, 4, ceil(N / block)): rows [x_min, x_max, y_min, y_max] of the
-    valid slots of each run of ``block`` slots; a run without a valid slot
-    gets the empty box [inf, -inf, inf, -inf], which every test skips.
+    valid slots of each run of ``block`` slots, NaN coordinates left out;
+    a run without a valid slot gets the empty box [inf, -inf, inf, -inf],
+    which every test skips.
 
     The Pallas wrapper boxes invalid slots too, at x = +-1e6, so the block
     where sorted valid slots meet invalid ones spans the whole range and is
@@ -222,8 +264,9 @@ def sweep_boxes(xy, valid, block):
     """
     B, N = valid.shape
     inf = torch.tensor(float("inf"), dtype=xy.dtype, device=xy.device)
-    lo = torch.where(valid[..., None], xy, inf)
-    hi = torch.where(valid[..., None], xy, -inf)
+    keep = valid[..., None] & ~torch.isnan(xy)
+    lo = torch.where(keep, xy, inf)
+    hi = torch.where(keep, xy, -inf)
     n = -(-N // block)
     pad = n * block - N
     if pad:
@@ -235,71 +278,123 @@ def sweep_boxes(xy, valid, block):
                        dim=1).contiguous()
 
 
-def sweep_live_tiles(qbox, tbox, radius):
-    """(B,) int: the (query block, target tile) pairs the sweep computes,
-    by the kernel's box test."""
+def sweep_order_plain(q_xy, q_valid, t_xy, t_valid, sort=True,
+                      tiling=SWEEP_TILING):
+    """The plain version of the order kernel; see ``sweep_order``.
+    ``tiling`` is the (rows, box) the boxes cover."""
+    _check_slots(q_valid.shape[-1], t_valid.shape[-1])
+
+    def order(xy, valid, invalid_x):
+        if not sort:
+            n = valid.shape[-1]
+            return torch.arange(n, device=valid.device).expand(valid.shape)
+        return torch.argsort(torch.where(valid, xy[..., 0], invalid_x),
+                             dim=-1, stable=True)
+
+    qperm = order(q_xy, q_valid, 1e6)
+    tperm = order(t_xy, t_valid, -1e6)
+    rows, box = tiling
+    return (qperm.to(torch.int32).contiguous(),
+            tperm.to(torch.int32).contiguous(),
+            _boxes(_take(q_xy, qperm), _take(q_valid, qperm), rows),
+            _boxes(_take(t_xy, tperm), _take(t_valid, tperm), box))
+
+
+def _order_launch(q_xy, q_valid, t_xy, t_valid, sort, B, N1, N2):
+    rows, box = SWEEP_TILING
+    dev = q_valid.device
+    out = (torch.empty((B, N1), dtype=torch.int32, device=dev),
+           torch.empty((B, N2), dtype=torch.int32, device=dev),
+           torch.empty((B, 4, -(-N1 // rows)), dtype=torch.float32,
+                       device=dev),
+           torch.empty((B, 4, -(-N2 // box)), dtype=torch.float32,
+                       device=dev))
+    _run("order", (q_xy, q_valid, t_xy, t_valid, *out, B, N1, N2, rows, box,
+                   int(sort)), dev)
+    launches["sweep_order"] += 1
+    return out
+
+
+def sweep_order(q_xy, q_valid, t_xy, t_valid, sort=True):
+    """Both sides of B problems in stable x order, and the boxes the sweep
+    kernel tests: (qperm (B, N1), tperm (B, N2) int32, sorted position ->
+    slot; qbox (B, 4, ceil(N1 / rows)), tbox (B, 4, ceil(N2 / box))
+    float32, rows [x_min, x_max, y_min, y_max] of the valid slots of the
+    sorted query blocks and target runs at ``SWEEP_TILING``).  The keys
+    are x, or +1e6 for an invalid query and -1e6 for an invalid target;
+    ties keep slot order.  With
+    ``sort`` False the permutations are the identity (slots already in
+    order).  At most ``MAX_SWEEP_SLOTS`` slots a side; more raise
+    ValueError.  CPU tensors take the plain version, CUDA tensors the order
+    kernel."""
+    if not _device_route(q_valid):
+        return sweep_order_plain(q_xy, q_valid, t_xy, t_valid, sort)
+    _check_tensors(q_valid.device, {"q_xy": q_xy, "t_xy": t_xy},
+                   {"q_valid": q_valid, "t_valid": t_valid})
+    B, N1 = q_valid.shape
+    N2 = t_valid.shape[-1]
+    _check_shapes({"q_xy": q_xy, "t_xy": t_xy, "t_valid": t_valid},
+                  {"q_xy": (B, N1, 2), "t_xy": (B, N2, 2),
+                   "t_valid": (B, N2)})
+    _check_slots(N1, N2)
+    if B > 65535:
+        raise ValueError(f"the order kernel takes at most 65535 problems, "
+                         f"got {B}")
+    return _order_launch(q_xy, q_valid, t_xy, t_valid, sort, B, N1, N2)
+
+
+def sweep_live(qbox, tbox, radius):
+    """(B, n query blocks, n target runs) bool: the kernel's box test, an
+    L1 gap between the boxes below the radius."""
     dx = torch.maximum(tbox[:, None, 0] - qbox[:, 1, :, None],
                        qbox[:, 0, :, None] - tbox[:, None, 1])
     dy = torch.maximum(tbox[:, None, 2] - qbox[:, 3, :, None],
                        qbox[:, 2, :, None] - tbox[:, None, 3])
-    live = dx.clamp(min=0.0) + dy.clamp(min=0.0) < radius
-    return live.sum((1, 2))
+    return dx.clamp(min=0.0) + dy.clamp(min=0.0) < radius
 
 
-def fused_sweep_two_min(q_xy, q_valid, q_d, t_xy, t_valid, t_d, F, use_epi,
-                        sampson_thresh=1.0, radius=80.0):
-    """``fused_gated_two_min`` on slots sorted by x, by the sweep kernel.
-
-    The arguments are those of ``fused_gated_two_min``.  On the card the
-    boxes of the kernel's query blocks and target tiles (``sweep_boxes``)
-    are computed here, as the Pallas wrapper computes them in XLA.
-    """
-    if not _device_route(q_d):
-        return fused_sweep_two_min_plain(q_xy, q_valid, q_d, t_xy, t_valid,
-                                         t_d, F, use_epi, sampson_thresh,
-                                         radius)
-    B, N1, N2, D = _check(q_xy, q_valid, q_d, t_xy, t_valid, t_d, F,
-                          use_epi)
-    best, second, idx = _outputs(B, N1, q_d.device)
-    if best.numel() == 0:
-        return best, second, idx
-    rows, cols = tiling()
-    qbox = sweep_boxes(q_xy, q_valid, rows)
-    tbox = sweep_boxes(t_xy, t_valid, cols)
-    _run("sweep", (q_xy, q_valid, q_d, t_xy, t_valid, t_d, F, use_epi, qbox,
-                   tbox, best, second, idx), (B, N1, N2, D),
-         radius, sampson_thresh, q_d.device)
-    launches["fused_sweep_two_min"] += 1
-    return best, second, idx
+def sweep_plan(B, N1):
+    """(query rows per block, CTAs per cluster) of a sweep kernel launch on
+    B problems of N1 queries on the current CUDA device."""
+    rows, split = ctypes.c_int(), ctypes.c_int()
+    rc = _library()["plan"](B, N1, ctypes.byref(rows), ctypes.byref(split))
+    if rc != 0:
+        raise RuntimeError(f"fused_sweep_plan failed: cudaError_t {rc}")
+    return rows.value, split.value
 
 
-def sort_slots(q_xy, q_valid, q_d, t_xy, t_valid, t_d):
-    """Both sides of each problem in stable x order, invalid queries keyed
-    at +1e6 and invalid targets at -1e6: (the six tensors sorted, qperm,
-    tperm), the permutations (B, N) int64."""
-    def order(xy, valid, invalid_x):
-        return torch.argsort(torch.where(valid, xy[..., 0], invalid_x),
-                             dim=-1, stable=True)
+def sweep_columns(qbox, tbox, radius, N2, rows=SWEEP_TILING[0]):
+    """(c0, c1), each (B, n query blocks) int64: the sorted target columns
+    [c0, c1) the sweep kernel computes for each block of ``rows`` sorted
+    queries (the union of its query boxes), from the first live run of
+    target slots to the end of the last (c1 = c0 when none is live); it
+    computes them in windows of ``SWEEP_WINDOW`` from c0."""
+    box = SWEEP_TILING[1]
+    k = rows // SWEEP_TILING[0]          # query boxes a block
+    n = qbox.shape[-1]
+    if k > 1:
+        pad = -n % k
+        inf = qbox.new_tensor(float("inf"))
+        edge = torch.stack([inf, -inf, inf, -inf])[None, :, None]
+        qbox = torch.cat([qbox, edge.expand(qbox.shape[0], 4, pad)], -1)
+        qbox = qbox.reshape(qbox.shape[0], 4, -1, k)
+        qbox = torch.stack([qbox[:, 0].amin(-1), qbox[:, 1].amax(-1),
+                            qbox[:, 2].amin(-1), qbox[:, 3].amax(-1)], 1)
+    live = sweep_live(qbox, tbox, radius)
+    at = torch.arange(live.shape[-1], device=live.device)
+    lo = torch.where(live, at, live.shape[-1]).amin(-1)
+    hi = torch.where(live, at, -1).amax(-1)
+    c0 = lo * box
+    return c0, torch.where(hi < 0, c0, ((hi + 1) * box).clamp(max=N2))
 
-    def take(x, perm):
-        ix = perm if x.dim() == 2 else perm[..., None]
-        return torch.take_along_dim(x, ix, dim=1)
 
-    qperm = order(q_xy, q_valid, 1e6)
-    tperm = order(t_xy, t_valid, -1e6)
-    return ([take(x, qperm) for x in (q_xy, q_valid, q_d)]
-            + [take(x, tperm) for x in (t_xy, t_valid, t_d)], qperm, tperm)
-
-
-def sorted_fused_two_min(q_xy, q_valid, q_d, t_xy, t_valid, t_d, F, use_epi,
-                         sampson_thresh=1.0, radius=80.0, sweep=None):
-    """``fused_gated_two_min`` semantics through the sweep kernel: both
-    sides sorted by x, the result mapped back to the original slots (idx
-    into the original target slots).  Among equal distances the lowest
-    x-sorted target wins.  ``sweep`` replaces the sweep call (the plain
-    version on the card, for comparison)."""
-    sweep = sweep or fused_sweep_two_min
-    srt, qperm, tperm = sort_slots(q_xy, q_valid, q_d, t_xy, t_valid, t_d)
+def _through_order(sweep, q_xy, q_valid, q_d, t_xy, t_valid, t_d, F,
+                   use_epi, qperm, tperm, sampson_thresh, radius):
+    """``sweep`` on both sides gathered into the order (qperm, tperm), its
+    result mapped back to the original slots (idx to a target slot)."""
+    qperm, tperm = qperm.long(), tperm.long()
+    srt = ([_take(x, qperm) for x in (q_xy, q_valid, q_d)]
+           + [_take(x, tperm) for x in (t_xy, t_valid, t_d)])
     best_s, second_s, idx_s = sweep(*srt, F, use_epi, sampson_thresh,
                                     radius)
 
@@ -310,3 +405,94 @@ def sorted_fused_two_min(q_xy, q_valid, q_d, t_xy, t_valid, t_d, F, use_epi,
     idx = torch.where(idx_s >= 0,
                       torch.gather(tperm, 1, idx_s.clamp(min=0).long()), -1)
     return unsort(best_s), unsort(second_s), idx.to(torch.int32)
+
+
+def _sweep_launch(q_xy, q_valid, q_d, t_xy, t_valid, t_d, F, use_epi,
+                  order, sampson_thresh, radius, B, N1, N2, D):
+    best, second, idx = _outputs(B, N1, q_d.device)
+    _run("sweep", (q_xy, q_valid, q_d, t_xy, t_valid, t_d, F, use_epi,
+                   *order, best, second, idx, B, N1, N2, D, radius,
+                   sampson_thresh), q_d.device)
+    launches["fused_sweep_two_min"] += 1
+    return best, second, idx
+
+
+def swept_two_min(q_xy, q_valid, q_d, t_xy, t_valid, t_d, F, use_epi,
+                  order, sampson_thresh=1.0, radius=80.0):
+    """``fused_gated_two_min`` with both sides read in ``order``, the
+    result of ``sweep_order``: best, second and idx at the original query
+    slots, idx an original target slot, and among equal distances the
+    lowest target in the order wins.  CPU tensors take the plain version
+    (gather, ``fused_sweep_two_min_plain``, map back); CUDA tensors the
+    sweep kernel alone."""
+    qperm, tperm, qbox, tbox = order
+    if not _device_route(q_d):
+        return _through_order(fused_sweep_two_min_plain, q_xy, q_valid, q_d,
+                              t_xy, t_valid, t_d, F, use_epi, qperm, tperm,
+                              sampson_thresh, radius)
+    B, N1, N2, D = _check(q_xy, q_valid, q_d, t_xy, t_valid, t_d, F,
+                          use_epi)
+    _check_slots(N1, N2)
+    rows, box = SWEEP_TILING
+    for name, x, shape, dtype in (
+            ("qperm", qperm, (B, N1), torch.int32),
+            ("tperm", tperm, (B, N2), torch.int32),
+            ("qbox", qbox, (B, 4, -(-N1 // rows)), torch.float32),
+            ("tbox", tbox, (B, 4, -(-N2 // box)), torch.float32)):
+        if (x.device != q_d.device or x.dtype != dtype
+                or tuple(x.shape) != shape or not x.is_contiguous()):
+            raise ValueError(f"{name}: expected a contiguous {dtype} tensor "
+                             f"{shape} on {q_d.device}, got {x.dtype} "
+                             f"{tuple(x.shape)} on {x.device}")
+    if B * N1 == 0:
+        return _outputs(B, N1, q_d.device)
+    return _sweep_launch(q_xy, q_valid, q_d, t_xy, t_valid, t_d, F, use_epi,
+                         order, sampson_thresh, radius, B, N1, N2, D)
+
+
+def _sweep_route(q_xy, q_valid, q_d, t_xy, t_valid, t_d, F, use_epi,
+                 sampson_thresh, radius, sort):
+    """The order kernel, then the sweep kernel: two launches."""
+    B, N1, N2, D = _check(q_xy, q_valid, q_d, t_xy, t_valid, t_d, F,
+                          use_epi)
+    _check_slots(N1, N2)
+    if B * N1 == 0:
+        return _outputs(B, N1, q_d.device)
+    order = _order_launch(q_xy, q_valid, t_xy, t_valid, sort, B, N1, N2)
+    return _sweep_launch(q_xy, q_valid, q_d, t_xy, t_valid, t_d, F, use_epi,
+                         order, sampson_thresh, radius, B, N1, N2, D)
+
+
+def fused_sweep_two_min(q_xy, q_valid, q_d, t_xy, t_valid, t_d, F, use_epi,
+                        sampson_thresh=1.0, radius=80.0):
+    """``fused_gated_two_min`` on slots sorted by x, by the sweep kernel.
+
+    The arguments are those of ``fused_gated_two_min``.  On the card the
+    order kernel boxes the slots as given (no sort), then the sweep kernel
+    runs: two launches, one of each.
+    """
+    if not _device_route(q_d):
+        return fused_sweep_two_min_plain(q_xy, q_valid, q_d, t_xy, t_valid,
+                                         t_d, F, use_epi, sampson_thresh,
+                                         radius)
+    return _sweep_route(q_xy, q_valid, q_d, t_xy, t_valid, t_d, F, use_epi,
+                        sampson_thresh, radius, sort=False)
+
+
+def sorted_fused_two_min(q_xy, q_valid, q_d, t_xy, t_valid, t_d, F, use_epi,
+                         sampson_thresh=1.0, radius=80.0, sweep=None):
+    """``fused_gated_two_min`` semantics through the sweep: both sides
+    sorted by x (``sweep_order``), the result at the original slots (idx
+    into the original target slots).  Among equal distances the lowest
+    x-sorted target wins.  On CUDA tensors: the order kernel and the sweep
+    kernel, two launches.  ``sweep`` replaces the sweep (the plain version
+    on the card, for comparison): the sides are then sorted by
+    ``sweep_order_plain``, gathered, swept and mapped back."""
+    if sweep is None:
+        if _device_route(q_d):
+            return _sweep_route(q_xy, q_valid, q_d, t_xy, t_valid, t_d, F,
+                                use_epi, sampson_thresh, radius, sort=True)
+        sweep = fused_sweep_two_min_plain
+    qperm, tperm, _, _ = sweep_order_plain(q_xy, q_valid, t_xy, t_valid)
+    return _through_order(sweep, q_xy, q_valid, q_d, t_xy, t_valid, t_d, F,
+                          use_epi, qperm, tperm, sampson_thresh, radius)

@@ -1,7 +1,7 @@
 """Card-only tests of libviso_torch: the CUDA kernels (L1 distance, fused
-gated matcher and its sweep) against their plain versions, and the
-pipeline and multi-stream serving on the card against the CPU and the solo
-runs.
+gated matcher, and the sweep's order and sweep kernels) against their
+plain versions, and the pipeline and multi-stream serving on the card
+against the CPU and the solo runs.
 
 Every test is marked ``cuda`` and skips without a card.  The file imports
 no JAX, so it runs on a machine that has none; the suite's conftest.py
@@ -217,6 +217,99 @@ def test_fused_gated_raises_on_a_refused_launch():
     with pytest.raises(RuntimeError, match="cudaError_t"):
         fm.fused_gated_two_min(*args, 1.0, 80.0)
     assert fm.launches["fused_gated_two_min"] == before
+
+
+@pytest.mark.parametrize("shape", [(3, 1280, 1280, 128),
+                                   (12, 1280, 1280, 128),
+                                   (1, 1280, 1280, 128),
+                                   (2, 1000, 777, 128), (3, 1280, 1280, 124),
+                                   (1, 5, 3, 4)])
+def test_sweep_order_matches_plain_bitwise(shape):
+    """The order kernel's permutations and boxes equal its plain version's
+    (argsort, gathers, amin / amax), sorted and unsorted, with both sides
+    valid and with an all-invalid side."""
+    require_cuda()
+    q_xy, q_valid, _, t_xy, t_valid = _match_problem(*shape)[:5]
+    for qv, tv in ((q_valid, t_valid), (torch.zeros_like(q_valid), t_valid),
+                   (q_valid, torch.zeros_like(t_valid))):
+        for sort in (True, False):
+            before = fm.launches["sweep_order"]
+            got = fm.sweep_order(q_xy, qv, t_xy, tv, sort)
+            torch.cuda.synchronize()
+            assert fm.launches["sweep_order"] == before + 1
+            want = fm.sweep_order_plain(q_xy, qv, t_xy, tv, sort)
+            for x, y in zip(got, want):
+                assert x.dtype == y.dtype and torch.equal(x, y)
+
+
+def test_sweep_tie_across_target_splits_goes_to_lowest_sorted_column():
+    """Targets 640-1279 repeat targets 0-639 (descriptors and validity) 40
+    px further left, so each sorts before the slot it repeats, tens of
+    sorted columns away: a row near both ties between two columns that
+    often lie in different windows and different CTAs of a cluster.  The
+    lower sorted column must win, which is the higher target slot; a merge
+    by slot would pick the other."""
+    require_cuda()
+    args = _match_problem(3, 1280, 1280, 128)
+    for k in (3, 4, 5):
+        args[k][:, 640:] = args[k][:, :640]
+    args[3][:, 640:, 0] -= 40
+    got = fm.sorted_fused_two_min(*args, 1.0, 80.0)
+    want = fm.sorted_fused_two_min(*args, 1.0, 80.0,
+                                   sweep=fm.fused_sweep_two_min_plain)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+    has = got[2] >= 0
+    assert has.float().mean() > 0.5
+    tie = has & (got[0] == got[1])
+    assert tie.float().mean() > 0.2
+    assert (got[2][tie] >= 640).float().mean() > 0.5
+
+
+def test_sweep_route_is_two_device_launches():
+    """One sorted_fused_two_min call on CUDA tensors runs exactly two
+    device activities, the order kernel and the sweep kernel, by
+    torch.profiler; the counts of both wrappers rise by one."""
+    require_cuda()
+    from torch.profiler import ProfilerActivity, profile
+
+    args = _match_problem(3, 1280, 1280, 128)
+    fm.sorted_fused_two_min(*args, 1.0, 80.0)      # build and load first
+    torch.cuda.synchronize()
+    before = dict(fm.launches)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fm.sorted_fused_two_min(*args, 1.0, 80.0)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == 2, names
+    assert any("sweep_order" in n for n in names)
+    assert any("fused_sweep" in n for n in names)
+    assert fm.launches["sweep_order"] == before["sweep_order"] + 1
+    assert fm.launches["fused_sweep_two_min"] == \
+        before["fused_sweep_two_min"] + 1
+
+
+def test_sweep_raises_on_a_refused_launch():
+    """D = 2048 asks the sweep kernel for 512 KB of resident query
+    descriptors: the launch is refused and the wrapper raises with its
+    cudaError_t."""
+    require_cuda()
+    args = _match_problem(1, 64, 64, 2048)
+    before = fm.launches["fused_sweep_two_min"]
+    with pytest.raises(RuntimeError, match="cudaError_t"):
+        fm.sorted_fused_two_min(*args, 1.0, 80.0)
+    assert fm.launches["fused_sweep_two_min"] == before
+
+
+def test_sweep_route_rejects_more_slots_than_the_order_kernel_sorts():
+    require_cuda()
+    args = _match_problem(1, 64, fm.MAX_SWEEP_SLOTS + 1, 4)
+    before = dict(fm.launches)
+    with pytest.raises(ValueError, match=str(fm.MAX_SWEEP_SLOTS)):
+        fm.sorted_fused_two_min(*args, 1.0, 80.0)
+    assert fm.launches == before
 
 
 def test_fused_kernels_reject_what_they_do_not_take():

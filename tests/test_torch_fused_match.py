@@ -176,22 +176,171 @@ def test_target_split_folds_to_the_unsplit_result(rng, chunks):
         assert (whole[0][has] == whole[1][has]).any()      # ties
 
 
-def _d(valid):
-    return np.zeros((len(valid), D), np.float32)
+def _sorted_route_by_kernel_dataflow(args, rows, chunks, rng,
+                                     map_first=False):
+    """The sweep kernel's dataflow in plain PyTorch: the order's
+    permutations and boxes, then per block of ``rows`` sorted queries its
+    windows of sorted target columns (``sweep_columns``) split in
+    ``chunks`` contiguous parts (one a CTA of a cluster), each part's rows
+    and columns read through qperm and tperm, the parts folded in (value,
+    sorted column) order in a random order of parts, and only at the store
+    best and second written at query slot qperm[r] and the sorted column
+    mapped through tperm.  ``map_first`` maps each part's columns to
+    target slots before the fold instead, the order that breaks ties
+    wrongly."""
+    q_xy, q_valid, q_d, t_xy, t_valid, t_d, F, use_epi = args
+    qperm, tperm, qbox, tbox = (x[0] for x in fm.sweep_order_plain(
+        q_xy, q_valid, t_xy, t_valid))
+    qperm, tperm = qperm.long(), tperm.long()
+    W = fm.SWEEP_WINDOW
+    N1, N2 = qperm.numel(), tperm.numel()
+    c0, c1 = (x[0].tolist() for x in fm.sweep_columns(
+        qbox[None], tbox[None], RADIUS, N2, rows=rows))
+    best = torch.full((N1,), float("inf"))
+    second, idx = best.clone(), torch.full((N1,), -1, dtype=torch.int32)
+    for b in range(len(c0)):
+        r = qperm[b * rows:(b + 1) * rows]
+        n = -(-(c1[b] - c0[b]) // W)          # windows
+        parts = []
+        for k in range(chunks):
+            c = torch.arange(c0[b] + k * n // chunks * W,
+                             min(c0[b] + (k + 1) * n // chunks * W, c1[b]))
+            j = tperm[c]
+            part = fm.fused_gated_two_min_plain(
+                q_xy[:, r], q_valid[:, r], q_d[:, r], t_xy[:, j],
+                t_valid[:, j], t_d[:, j], F, use_epi, THRESH, RADIUS)
+            col = (j if map_first else c).to(torch.int32)
+            at = part[2][0].clamp(min=0).long()
+            parts.append((part[0][0], part[1][0],
+                          torch.where(part[2][0] >= 0, col[at] if len(c)
+                                      else part[2][0], -1)))
+        order = rng.permutation(chunks)
+        m = parts[order[0]]
+        for k in order[1:]:
+            m = _fold(m, parts[k])
+        best[r], second[r] = m[0], m[1]
+        idx[r] = m[2] if map_first else torch.where(
+            m[2] >= 0, tperm[m[2].clamp(min=0).long()].to(torch.int32), -1)
+    return best[None], second[None], idx[None]
+
+
+@pytest.mark.parametrize("chunks", [1, 2, 3, 4])
+def test_sweep_dataflow_split_folds_to_the_sorted_route(rng, chunks):
+    """The invariant the sweep kernel rests on: read through the order's
+    permutations, its live tiles split over the CTAs of a cluster and
+    folded by (value, sorted column) in any order, mapped to slots only at
+    the store, it equals the sort-then-unsort route bitwise.  Descriptors
+    in {0, 1, 2}; the third quarter of the targets repeats the first 30 px
+    further left, so it sorts before the slots it repeats and ties with
+    them across windows.  Both block heights of the kernel; a fold by
+    target slot instead of sorted column gives another answer on some of
+    those ties."""
+    prob = _problem(rng, integer=True)
+    args = [to_torch(x)[None] for x in prob] + [torch.tensor([False])]
+    for k in (3, 4, 5):
+        args[k][:, N // 2:3 * N // 4] = args[k][:, :N // 4]
+    args[3][:, N // 2:3 * N // 4, 0] -= 30
+    want = fm.sorted_fused_two_min(*args, THRESH, RADIUS)
+    has = torch.isfinite(want[0])
+    assert 10 < int(has.sum()) < N
+    assert (want[0][has] == want[1][has]).any()      # ties
+    for rows in (fm.SWEEP_TILING[0], 2 * fm.SWEEP_TILING[0]):
+        got = _sorted_route_by_kernel_dataflow(args, rows, chunks, rng)
+        for x, y in zip(got, want):
+            assert torch.equal(x, y)
+        if chunks > 1:
+            wrong = _sorted_route_by_kernel_dataflow(args, rows, chunks, rng,
+                                                     map_first=True)
+            assert torch.equal(wrong[0], want[0])
+            assert (wrong[2] != want[2]).any()
+
+
+def _with_ties_of_x(rng, n=300):
+    """(B=1) positions and validity of n slots: integer x in [0, 20), so
+    many slots share an x, a -0.0 and a 0.0 among the valid ones, and a
+    tenth invalid."""
+    xy = np.stack([rng.integers(0, 20, n), rng.integers(0, 9, n)],
+                  -1).astype(np.float32)
+    valid = rng.random(n) > 0.1
+    zeros = np.flatnonzero(valid & (xy[:, 0] == 0))
+    assert len(zeros) >= 2
+    xy[zeros[::2], 0] = -0.0
+    assert np.signbit(xy[:, 0]).any()
+    return xy, valid
+
+
+def test_order_plain_equals_jax_keys_and_argsort(rng):
+    """sweep_order_plain's permutations are the Pallas wrapper's: its keys
+    (x, +1e6 for an invalid query, -1e6 for an invalid target) through
+    jnp.argsort, on many equal x, invalid slots and a -0.0 key."""
+    (q_xy, q_valid), (t_xy, t_valid) = _with_ties_of_x(rng), \
+        _with_ties_of_x(rng, 277)
+    qperm, tperm, _, _ = fm.sweep_order_plain(
+        *(to_torch(x)[None] for x in (q_xy, q_valid, t_xy, t_valid)))
+    jq = jnp.argsort(jnp.where(jnp.asarray(q_valid), jnp.asarray(q_xy)[:, 0],
+                               1e6))
+    jt = jnp.argsort(jnp.where(jnp.asarray(t_valid), jnp.asarray(t_xy)[:, 0],
+                               -1e6))
+    np.testing.assert_array_equal(to_np(qperm[0]), np.asarray(jq))
+    np.testing.assert_array_equal(to_np(tperm[0]), np.asarray(jt))
+    assert qperm.dtype == tperm.dtype == torch.int32
+    unsorted = fm.sweep_order_plain(
+        *(to_torch(x)[None] for x in (q_xy, q_valid, t_xy, t_valid)),
+        sort=False)
+    assert torch.equal(unsorted[0][0], torch.arange(300, dtype=torch.int32))
+
+
+def test_order_boxes_equal_a_numpy_reference(rng):
+    """The boxes, at the sweep kernel's tiling and ragged sizes, equal a
+    per-block numpy reduction over the valid sorted slots; a block without
+    one is [inf, -inf, inf, -inf]."""
+    rows, cols = fm.SWEEP_TILING
+    (q_xy, q_valid), (t_xy, t_valid) = _with_ties_of_x(rng, 301), \
+        _with_ties_of_x(rng, 150)
+    t_valid[:cols + 5] = False          # a target tile with no valid slot
+    out = fm.sweep_order_plain(
+        *(to_torch(x)[None] for x in (q_xy, q_valid, t_xy, t_valid)))
+    for xy, valid, perm, box, block in ((q_xy, q_valid, out[0], out[2], rows),
+                                        (t_xy, t_valid, out[1], out[3],
+                                         cols)):
+        perm = to_np(perm[0])
+        n = -(-len(valid) // block)
+        want = np.empty((4, n), np.float32)
+        for b in range(n):
+            s = perm[b * block:(b + 1) * block]
+            v = xy[s][valid[s]]
+            want[:, b] = ([v[:, 0].min(), v[:, 0].max(), v[:, 1].min(),
+                           v[:, 1].max()] if len(v) else
+                          [np.inf, -np.inf, np.inf, -np.inf])
+        np.testing.assert_array_equal(to_np(box[0]), want)
+    assert np.isinf(to_np(out[3][0])).any(0).sum() >= 1
+
+
+def test_slot_count_above_the_order_limit_raises():
+    n = fm.MAX_SWEEP_SLOTS + 1
+    xy, valid = torch.zeros(1, n, 2), torch.ones(1, n, dtype=torch.bool)
+    d = torch.zeros(1, n, 4)
+    with pytest.raises(ValueError, match=str(fm.MAX_SWEEP_SLOTS)):
+        fm.sweep_order(xy, valid, xy[:, :5], valid[:, :5])
+    with pytest.raises(ValueError, match=str(fm.MAX_SWEEP_SLOTS)):
+        fm.sorted_fused_two_min(xy[:, :5], valid[:, :5], d[:, :5], xy, valid,
+                                d, torch.eye(3)[None], torch.tensor([False]))
 
 
 def test_sweep_skip_is_exact(rng):
-    """Every pair the gate admits lies in a (query block, target tile)
-    pair that the sweep's box test keeps, whatever the block sizes; a
-    block of invalid slots has an empty box."""
+    """Every pair the gate admits lies in a (query block, target run) pair
+    that the sweep's box test keeps, whatever the block sizes, and at the
+    kernel's tiling within the sorted columns it computes for the query
+    block (``sweep_columns``); a block of invalid slots has an empty box."""
     xy1, v1, _, xy2, v2, _, F = _problem(rng, integer=False)
-    (q_xy, q_valid, _, t_xy, t_valid, _), _, _ = fm.sort_slots(
-        *(to_torch(x)[None] for x in (xy1, v1, _d(v1), xy2, v2, _d(v2))))
-    ok = fm.gate(q_xy, q_valid, t_xy, t_valid, to_torch(F)[None],
-                 torch.tensor([False]), THRESH, RADIUS)[0]
-    for rows, cols in ((32, 64), (16, 48)):
-        qbox = fm.sweep_boxes(q_xy, q_valid, rows)
-        tbox = fm.sweep_boxes(t_xy, t_valid, cols)
+    args = [to_torch(x)[None] for x in (xy1, v1, xy2, v2)]
+    for rows, cols in ((32, 64), (16, 48), fm.SWEEP_TILING):
+        qperm, tperm, qbox, tbox = fm.sweep_order_plain(*args,
+                                                        tiling=(rows, cols))
+        q_xy, q_valid = (x[0][qperm[0].long()][None] for x in args[:2])
+        t_xy, t_valid = (x[0][tperm[0].long()][None] for x in args[2:])
+        ok = fm.gate(q_xy, q_valid, t_xy, t_valid, to_torch(F)[None],
+                     torch.tensor([False]), THRESH, RADIUS)[0]
         dx = torch.maximum(tbox[0, 0][None] - qbox[0, 1][:, None],
                            qbox[0, 0][:, None] - tbox[0, 1][None])
         dy = torch.maximum(tbox[0, 2][None] - qbox[0, 3][:, None],
@@ -199,10 +348,15 @@ def test_sweep_skip_is_exact(rng):
         live = dx.clamp(min=0) + dy.clamp(min=0) < RADIUS
         i, j = ok.nonzero().unbind(1)
         assert live[i // rows, j // cols].all()
-        assert int(fm.sweep_live_tiles(qbox, tbox, RADIUS)) == \
-            int(live.sum())
+        assert torch.equal(fm.sweep_live(qbox, tbox, RADIUS)[0], live)
         assert live.float().mean() < 0.75     # it does skip
-    qbox = fm.sweep_boxes(q_xy, torch.zeros_like(q_valid), 32)
+    for rows in (rows, 2 * rows):       # the kernel's two block heights
+        c0, c1 = (x[0] for x in fm.sweep_columns(qbox, tbox, RADIUS, N,
+                                                 rows=rows))
+        assert ((c0[i // rows] <= j) & (j < c1[i // rows])).all()
+        assert (c1 - c0).sum() < 0.75 * N * len(c0)      # it does skip
+    _, _, qbox, _ = fm.sweep_order_plain(args[0], torch.zeros_like(args[1]),
+                                         *args[2:])
     assert torch.isinf(qbox).all()
 
 

@@ -1,28 +1,32 @@
 #!/usr/bin/env python3
-"""Time the port's L1 and fused gated kernels against variants of their
-tiling, and the three matcher kernels against an older copy of their
+"""Time the port's L1, fused gated and sweep kernels against variants of
+their tiling, and the matcher kernels against an older copy of their
 sources, on one CUDA card.
 
   python3 tools/kernel_variants.py [--baseline DIR] [--shipped-only]
-      [--out chiprun_out/kernel_variants.json]
+      [--only WORD[,WORD...]] [--out chiprun_out/kernel_variants.json]
 
-Each variant is ``libviso_torch/csrc/l1_distance.cu`` or
-``fused_two_min.cu`` with some of its tiling constants replaced (tile
+Each variant is ``libviso_torch/csrc/l1_distance.cu``, ``fused_two_min.cu``
+or ``fused_sweep.cu`` with some of its tiling constants replaced (tile
 rows and columns, rows per thread, cluster split, ring stages, CTAs per
-SM), compiled with the build's nvcc flags into a library of its own.
-``--baseline DIR`` adds the ``l1_distance.cu`` and ``fused_two_min.cu`` found
-in DIR (with the headers they include), built the same way: for example an
-earlier commit unpacked with ``git archive`` into ``build/``.  The sweep
-kernel (``fused_sweep.cu``, or the baseline's ``fused_two_min.cu``) is timed
-alone, on slots sorted by x and boxes computed beforehand.  Every kernel
-is first held against the plain PyTorch version, bitwise, on the
-match problems of two KITTI-size frames (the detector output of uint8
-frames, integer descriptors) at (3, 1280, 128) and (12, 1280, 128), then
-timed in turns, forward and backward through the list, with CUDA events
-around 50 launches queued behind a sleep kernel (device time: no host
-time between launches).  ptxas' registers, shared memory and spills are
-printed for each, and the instruction mix of each kernel's largest loop
-in the shipped build, from cuobjdump where the toolkit has it.
+SM), compiled with the build's nvcc flags into a library of its own;
+``--only WORD[,WORD...]`` keeps the variants whose name holds one of them.
+``--baseline DIR`` adds the ``l1_distance.cu``, ``fused_two_min.cu`` and
+``fused_sweep.cu`` found in DIR (with the headers they include), built the
+same way: for example an earlier commit unpacked with ``git archive`` into
+``build/``.  A sweep kernel is timed alone: the current one reads the slots
+through permutations and boxes computed beforehand (at its own tiling),
+an older one that takes slots sorted by x gets them sorted, with its boxes.
+Beside them, the order kernel and the whole sweep route
+(``sorted_fused_two_min``) of the shipped build.  Every kernel is first
+held against the plain PyTorch version, bitwise, on the match problems of
+two KITTI-size frames (the detector output of uint8 frames, integer
+descriptors) at (3, 1280, 128) and (12, 1280, 128), then timed in turns,
+forward and backward through the list, with CUDA events around 50
+launches queued behind a sleep kernel (device time: no host time between
+launches).  ptxas' registers, shared memory and spills are printed for
+each, and the instruction mix of each kernel's largest loop in the
+shipped build, from cuobjdump where the toolkit has it.
 """
 
 import argparse
@@ -65,6 +69,17 @@ VARIANTS = {
         "kRows": 32, "kCols": 64, "kSplit": 4, "kMinCTAs": 6}),
     "gated 128 rows, split 4": ("fused_two_min.cu", {
         "kRows": 128, "kSplit": 4, "kMinCTAs": 1}),
+    "order shipped": ("sweep_order.cu", {}),
+    "order, dependents launched at the start": ("sweep_order.cu", {
+        "kLaunchDependents": 0}),
+    "order, dependents launched after the sort": ("sweep_order.cu", {
+        "kLaunchDependents": 1}),
+    "sweep no split": ("fused_sweep.cu", {"kMaxSplit": 1}),
+    "sweep to 3 CTAs a SM": ("fused_sweep.cu", {"kCTAsPerSM": 3}),
+    "sweep to 4 CTAs a SM": ("fused_sweep.cu", {"kCTAsPerSM": 4}),
+    "sweep 32-slot boxes": ("fused_sweep.cu", {"kBox": 32}),
+    "sweep batches of 2": ("fused_sweep.cu", {"kBatch": 2}),
+    "sweep 3 stages": ("fused_sweep.cu", {"kStages": 3}),
 }
 
 
@@ -132,16 +147,21 @@ def loop_mix(so):
     return mixes
 
 
-def bind(lib):
-    """[(kind, launch function)] of the kernels the library exports."""
+def bind(lib, sorted_sweep=False):
+    """[(kind, launch function)] of the kernels the library exports; with
+    sorted_sweep its sweep kernel takes slots sorted by x and boxes (kind
+    "sorted sweep"), else permutations and boxes ("sweep")."""
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     found = []
     for kind, symbol, args in (
             ("l1", "l1_distance_launch", [P, P, P] + [I] * 4 + [P]),
+            ("order", "sweep_order_launch", [P] * 8 + [I] * 6 + [P]),
             ("gated", "fused_gated_two_min_launch",
              [P] * 11 + [I] * 4 + [F, F, P]),
+            ("sorted sweep", "fused_sweep_two_min_launch",
+             [P] * 13 + [I] * 4 + [F, F, P]) if sorted_sweep else
             ("sweep", "fused_sweep_two_min_launch",
-             [P] * 13 + [I] * 4 + [F, F, P])):
+             [P] * 15 + [I] * 4 + [F, F, P])):
         if hasattr(lib, symbol):
             fn = getattr(lib, symbol)
             fn.argtypes, fn.restype = args, I
@@ -149,12 +169,38 @@ def bind(lib):
     return found
 
 
+def tiling(lib):
+    """The (query rows, target slots) a sweep kernel's boxes cover: its
+    block and box (current sources) or its block and tile (older ones,
+    which leave the third value unset)."""
+    rows, box, cols = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    lib.fused_sweep_tiling(ctypes.byref(rows), ctypes.byref(box),
+                           ctypes.byref(cols))
+    return rows.value, box.value
+
+
 def launch(kind, fn, pb):
-    """One launch on the problems pb (for the sweep: sorted, with the
-    boxes as qbox and tbox)."""
+    """One launch on the problems pb (for a sweep, with its order or
+    sorted, with its boxes)."""
     stream = torch.cuda.current_stream().cuda_stream
-    B, N1, D = pb["q_d"].shape
-    N2 = pb["t_d"].shape[1]
+    B, N1 = pb["q_valid"].shape
+    N2 = pb["t_valid"].shape[1]
+    if kind == "order":
+        from libviso_torch.ops import fused_matching as fm
+
+        rows, box = fm.SWEEP_TILING
+        outs = (torch.empty((B, N1), dtype=torch.int32, device="cuda"),
+                torch.empty((B, N2), dtype=torch.int32, device="cuda"),
+                torch.empty((B, 4, -(-N1 // rows)), device="cuda"),
+                torch.empty((B, 4, -(-N2 // box)), device="cuda"))
+        rc = fn(*(pb[k].data_ptr() for k in ("q_xy", "q_valid", "t_xy",
+                                             "t_valid")),
+                *(x.data_ptr() for x in outs), B, N1, N2, rows, box, 1,
+                stream)
+        if rc:
+            raise RuntimeError(f"launch failed: cudaError_t {rc}")
+        return outs
+    D = pb["q_d"].shape[2]
     if kind == "l1":
         out = torch.empty((B, N1, N2), device="cuda")
         rc = fn(pb["q_d"].data_ptr(), pb["t_d"].data_ptr(), out.data_ptr(),
@@ -201,6 +247,9 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", help="directory with older sources")
     ap.add_argument("--shipped-only", action="store_true")
+    ap.add_argument("--only", default="",
+                    help="keep the variants whose name holds one of "
+                    "these comma-separated words")
     ap.add_argument("--out", default=os.path.join(
         ROOT, "chiprun_out", "kernel_variants.json"))
     args = ap.parse_args()
@@ -215,8 +264,13 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     print(smi)
+    words = args.only.split(",")
+
+    def kept(name):
+        return any(w in name for w in words)
+
     variants = {k: v for k, v in VARIANTS.items()
-                if not args.shipped_only or "shipped" in k}
+                if (not args.shipped_only or "shipped" in k) and kept(k)}
     tmp = tempfile.mkdtemp(dir=os.path.join(ROOT, "build")
                            if os.path.isdir(os.path.join(ROOT, "build"))
                            else None)
@@ -229,9 +283,11 @@ def main():
             fh.write(text)
         jobs[name] = (path, CSRC)
     if args.baseline:
-        for src in ("l1_distance.cu", "fused_two_min.cu"):
-            jobs[f"baseline {src}"] = (os.path.join(args.baseline, src),
-                                       args.baseline)
+        for src in ("l1_distance.cu", "fused_two_min.cu", "fused_sweep.cu"):
+            if os.path.exists(os.path.join(args.baseline, src)) and \
+                    kept(f"baseline {src}"):
+                jobs[f"baseline {src}"] = (os.path.join(args.baseline, src),
+                                           args.baseline)
     libs = build_all(jobs, tmp)
     for name, (_, used) in libs.items():
         print(f"[ptxas] {name}: {used}")
@@ -250,31 +306,63 @@ def main():
     for S in (1, 4):
         pb = cs._match_problems(seqs, S, integer=True)
         shape = tuple(pb["q_d"].shape)
-        # the sweep's input: slots sorted by x, boxes of its 32-row blocks
-        # and 64-slot tiles (fused_sweep.cu)
-        srt, _, _ = fm.sort_slots(*list(pb.values())[:6])
-        sw = dict(zip(("q_xy", "q_valid", "q_d", "t_xy", "t_valid", "t_d"),
-                      srt), F=pb["F"], use_epi=pb["use_epi"],
-                  qbox=fm.sweep_boxes(srt[0], srt[1], 32),
-                  tbox=fm.sweep_boxes(srt[3], srt[4], 64))
+        sides = (pb["q_xy"], pb["q_valid"], pb["t_xy"], pb["t_valid"])
         want = {"l1": (cm.l1_distance_matrix_plain(pb["q_d"], pb["t_d"]),),
                 "gated": fm.fused_gated_two_min_plain(*pb.values(), 1.0,
                                                       80.0),
-                "sweep": fm.fused_sweep_two_min_plain(*srt, pb["F"],
-                                                      pb["use_epi"], 1.0,
-                                                      80.0)}
+                "sweep": fm.sorted_fused_two_min(
+                    *pb.values(), 1.0, 80.0,
+                    sweep=fm.fused_sweep_two_min_plain)}
+
+        def sweep_inputs(kind, lib):
+            """A sweep's inputs at its library's tiling, and its result:
+            the permutations and boxes, or the slots sorted by them."""
+            qperm, tperm, qbox, tbox = fm.sweep_order_plain(
+                *sides, tiling=tiling(lib))
+            if kind == "sweep":
+                return (dict(pb, qperm=qperm, tperm=tperm, qbox=qbox,
+                             tbox=tbox), want["sweep"])
+            srt = {k: torch.take_along_dim(
+                x, (qperm if k[0] == "q" else tperm).long().reshape(
+                    x.shape[:2] + (1,) * (x.dim() - 2)), dim=1)
+                for k, x in pb.items() if k[:2] in ("q_", "t_")}
+            srt = dict(srt, F=pb["F"], use_epi=pb["use_epi"], qbox=qbox,
+                       tbox=tbox)
+            return srt, fm.fused_sweep_two_min_plain(
+                *list(srt.values())[:8], 1.0, 80.0)
+
         fns = {}
         for name, (lib, _) in libs.items():
-            for kind, fn in bind(lib):
-                inputs = sw if kind == "sweep" else pb
+            for kind, fn in bind(lib, sorted_sweep=name == "baseline "
+                                 "fused_sweep.cu"):
+                if kind in ("sweep", "sorted sweep"):
+                    inputs, ref = sweep_inputs(kind, lib)
+                elif kind == "order":
+                    inputs, ref = pb, fm.sweep_order_plain(*sides)
+                else:
+                    inputs, ref = pb, want[kind]
                 got = launch(kind, fn, inputs)
                 torch.cuda.synchronize()
-                if not all(torch.equal(x, y)
-                           for x, y in zip(got, want[kind])):
+                if not all(torch.equal(x, y) for x, y in zip(got, ref)):
                     raise SystemExit(f"{name} {kind} {shape}: kernel != "
                                      f"plain bitwise")
                 fns[f"{name} [{kind}]"] = (
                     lambda k=kind, f=fn, a=inputs: launch(k, f, a))
+                if kind == "order":   # and the shipped sweep kernel after it
+                    fns[f"{name} [order, then the shipped sweep]"] = (
+                        lambda f=fn: fm.swept_two_min(
+                            *pb.values(), launch("order", f, pb), 1.0,
+                            80.0))
+        # what the two kernels cost without their work: the order kernel
+        # not sorting, the sweep kernel with no live tile (radius 0)
+        order = fm.sweep_order(*sides)
+        fns["order kernel (shipped)"] = lambda: fm.sweep_order(*sides)
+        fns["order kernel (shipped), no sort"] = lambda: fm.sweep_order(
+            *sides, sort=False)
+        fns["sweep kernel (shipped), radius 0"] = lambda: fm.swept_two_min(
+            *pb.values(), order, 1.0, 0.0)
+        fns["sweep route (shipped)"] = lambda: fm.sorted_fused_two_min(
+            *pb.values(), 1.0, 80.0)
         fns["torch.cdist(p=1)"] = lambda: torch.cdist(pb["q_d"], pb["t_d"],
                                                       p=1)
         for f in fns.values():
