@@ -33,7 +33,21 @@ Phases, each of which exits non-zero on failure:
      dense, each of the backend's kernels launches once per timestep, and
      the 20-frame streams solve 19/19 within the phase-4 ATE bound; a 2-slot
      StreamPool gives each sequence its solo result; where PIL imports,
-     `cli serve --pool 2` runs on a mini KITTI tree.
+     `cli serve --pool 2` runs on a mini KITTI tree.  All live streams of a
+     timestep are one batched solve;
+  9. the rest of the stereo path, at KITTI size under metric l1:
+     run_stereo_sequence(chunk=4) equals phase 4's per-frame run on every
+     stat and motion bit for bit, through one kernel launch a frame; the
+     same run cut at frame 8 by a checkpoint and resumed equals it too;
+     the serving step's `solves` stage (one call for all live streams) is
+     timed beside the per-stream solves of the earlier design;
+     build_batched_odometry on the first 8 frames under each backend
+     has the streaming run's discrete stats on the same draws,
+     with one launch of the backend's kernel per matcher call (two calls a
+     window); 4 frames with pyramid_levels=2, subpixel, sharpen_auto and
+     nms_radius=2 give the same discrete stats on the card as on the CPU;
+     keep_features_on_failure holds a blanked frame's predecessor; and
+     `cli synth --world --chunk 4 --metric l1 --backend sweep` runs.
 
 The line before the last is the kernel table as JSON: per kernel its
 launches on the main path, its time beside its bound (the larger of the
@@ -47,8 +61,9 @@ alone, `fused_ms` kernel #2 in the same turns, `route_launches` by
 torch.profiler), bounded by the (query, target) pairs that pass the
 position and validity gates, whatever the tiling; its (block, window)
 pairs and skip share beside.  Kernel times are device times: a sleep
-kernel holds the card while the host queues the timed launches.  The last
-line is {"ok": true, "device": {...}}.
+kernel holds the card while the host queues the timed launches.  The
+script's wall time is printed before it.  The last line is
+{"ok": true, "device": {...}}.
 """
 
 import json
@@ -85,6 +100,14 @@ FP32_INSTR_PER_S = 132 * 128 * 1.98e9   # FP32 lanes x boost clock
 KEYS = ("ok", "num_lr", "num_circle", "num_inliers")
 STATS = ("frame", "ok", "num_kp1", "num_lr", "num_circle", "num_inliers")
 SERVE_LENGTHS = (20, 20, 16, 12)   # streams of seeds 0..3
+# The serving step before the solve took a stream axis (S calls of the
+# solve in a loop), `tools/profile_torch_step.py --serve --repeats 3` on an
+# NVIDIA H100 80GB HBM3 at 700 W: per-timestep means of the `solves` stage
+# and the whole step [ms], and the median aggregate frames/s of 3 rounds.
+PER_STREAM_SOLVES = {
+    "dense": {"solves_ms": 86.1340, "step_ms": 103.2072, "fps": 25.11},
+    "fused": {"solves_ms": 96.1390, "step_ms": 111.2569, "fps": 26.12},
+    "sweep": {"solves_ms": 112.4198, "step_ms": 129.1269, "fps": 27.26}}
 BACKEND_KERNELS = {"dense": ("l1_distance_matrix",),
                    "fused": ("fused_gated_two_min",),
                    "sweep": ("sweep_order", "fused_sweep_two_min")}
@@ -263,7 +286,7 @@ def main_path_phase(seq):
     from libviso_torch.utils.metrics import ate_rmse
 
     fps = {}
-    launches = None
+    launches = l1_result = None
     for metric in ("l1", "l2"):
         ends = []
 
@@ -277,6 +300,7 @@ def main_path_phase(seq):
                                   device="cuda", on_frame=on_frame)
         if metric == "l1":
             launches = read_launches()["l1_distance_matrix"]
+            l1_result = res
         solved = int(res.frame_ok.sum())
         ate = ate_rmse(res.poses, seq.gt_poses)
         # frames 2..19: from the end of frame 1 to the end of frame 19
@@ -290,7 +314,7 @@ def main_path_phase(seq):
                   f"{len(seq.frames)} frames")
             check(ate <= ATE_BOUND, f"ATE {ate} m above the bound "
                   f"{ATE_BOUND} m (JAX {JAX_ATE_M} m)")
-    return launches, fps
+    return launches, fps, l1_result
 
 
 def card_vs_cpu_phase(seq):
@@ -577,10 +601,15 @@ def serving_phase(seqs):
                   f"{counts[name]} times in {T} timesteps")
         name = " and ".join(BACKEND_KERNELS[backend])
         fps[backend] = sum(SERVE_LENGTHS) / dt
+        tr_err = 0.0
         for s, (solo, got) in enumerate(zip(solos, multi)):
             check([{k: x[k] for k in STATS} for x in got.stats]
                   == [{k: x[k] for k in STATS} for x in solo.stats],
                   f"{backend}: stream {s} differs from its solo run")
+            tr_err = max(tr_err,
+                         float(np.abs(got.motions - solo.motions).max()))
+        check(tr_err <= 5e-6, f"{backend}: a stream's motions differ from "
+              f"its solo run by {tr_err}")
         stats[backend] = [[{k: x[k] for k in STATS} for x in r.stats]
                           for r in multi]
         ates = [ate_rmse(r.poses, sq.gt_poses) for r, sq in zip(multi, seqs)]
@@ -590,8 +619,9 @@ def serving_phase(seqs):
                 check(solved[s] == 19 and ates[s] <= ATE_BOUND,
                       f"{backend}: stream {s} solved {solved[s]}/19, ATE "
                       f"{ates[s]} m (bound {ATE_BOUND} m)")
-        print(f"[serve] {backend}: 4 streams == solo runs on every discrete "
-              f"stat; {name} {T} launches each in {T} timesteps; "
+        print(f"[serve] {backend}: 4 streams, one batched solve a timestep, "
+              f"== solo runs on every discrete stat, max |tr| difference "
+              f"{tr_err}; {name} {T} launches each in {T} timesteps; "
               f"solved {solved}, ATE {ates}; {fps[backend]:.2f} aggregate "
               f"frames/s ({sum(SERVE_LENGTHS)} frames in {dt:.3f} s)")
     check(stats["fused"] == stats["dense"],
@@ -668,6 +698,181 @@ def serve_cli_phase():
           f"{json.dumps(out)}")
 
 
+def _same_run(got, want, what):
+    """Bitwise: every stat (the float ones too), motions and poses."""
+    check(got.stats == want.stats, f"{what}: a per-frame stat differs")
+    check(np.array_equal(got.motions, want.motions)
+          and np.array_equal(got.poses, want.poses)
+          and np.array_equal(got.frame_ok, want.frame_ok),
+          f"{what}: motions or poses differ")
+
+
+def stereo_path_phase(seq, seqs, whole, serve_fps):
+    """Phase 9: chunked and resumed runs, the batched solve's stage
+    time, the frame-batched window, the detector options, the hold on a
+    failed frame and world frames.  ``whole`` is phase 4's l1 result,
+    ``serve_fps`` phase 8's aggregate frames/s per backend.  Returns the
+    kernels' launches in the windows."""
+    import dataclasses
+    import shutil
+
+    import torch
+
+    from libviso_torch.config import Calib, PipelineConfig
+    from libviso_torch.geometry.mvg import F_from_P_host
+    from libviso_torch.pipeline.batched import build_batched_odometry
+    from libviso_torch.pipeline.multistream import run_multistream
+    from libviso_torch.pipeline.stereo import run_stereo_sequence
+    from libviso_torch.solvers.ransac import frame_generator, sample_gumbel
+    from libviso_torch.utils.checkpoint import CheckpointManager
+
+    cfg = PipelineConfig().with_metric("l1")
+    run = lambda frames, **kw: run_stereo_sequence(  # noqa: E731
+        frames, seq.P1, seq.P2, cfg, seed=0, device="cuda", **kw)
+    T = len(seq.frames)
+
+    # chunked
+    reset_launches()
+    chunked = run(seq.frames, chunk=4)
+    n = read_launches()["l1_distance_matrix"]
+    _same_run(chunked, whole, "chunk=4 against chunk=1")
+    check(n == T, f"chunk=4: kernel launched {n} times for {T} frames")
+    print(f"[chunk] run_stereo_sequence(chunk=4) == the chunk=1 run of the "
+          f"main path bit for bit on {T} frames, {n} kernel launches")
+
+    # resume
+    ckdir = os.path.join(ROOT, "build", "chip_smoke_ckpt")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    mgr = CheckpointManager(ckdir, every=8)
+    cut = run(seq.frames[:8], chunk=4, checkpoint=mgr)
+    resumed = run(seq.frames, chunk=4, checkpoint=mgr)
+    shutil.rmtree(ckdir)
+    check(cut.processed == 8 and resumed.processed == T - 8,
+          f"resume computed {resumed.processed} frames, not {T - 8}")
+    _same_run(resumed, whole, "resumed at frame 8 against uninterrupted")
+    print(f"[resume] cut at frame 8 by a checkpoint and resumed "
+          f"({resumed.processed} frames computed) == the uninterrupted run "
+          f"bit for bit")
+
+    # the batched solve: stage times of the 4-stream step, sync after each
+    marks = []
+
+    def on_stage(stage):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    run_multistream([sq.frames for sq in seqs], [sq.P1 for sq in seqs],
+                    [sq.P2 for sq in seqs], cfg, seeds=range(len(seqs)),
+                    device="cuda", backend="fused", on_stage=on_stage)
+    rows = np.diff(np.asarray(marks)).reshape(-1, 4)[2:] * 1e3
+    solves, step = float(rows[:, 3].mean()), float(rows.sum(1).mean())
+    live = np.mean([sum(t < k for k in SERVE_LENGTHS)
+                    for t in range(2, max(SERVE_LENGTHS))])
+    old = PER_STREAM_SOLVES
+    print(f"[batched-solve] 4 streams, fused, timesteps 2-19, one solve "
+          f"call a timestep for {live:.2f} live streams on average: solves "
+          f"{solves:.4f} ms of a {step:.4f} ms timestep (per-stream solves "
+          f"in another call: {old['fused']['solves_ms']} of "
+          f"{old['fused']['step_ms']} ms); aggregate frames/s of the "
+          f"serving phase " + ", ".join(
+              f"{b} {serve_fps[b]:.2f} (was {old[b]['fps']})"
+              for b in serve_fps))
+
+    # the frame-batched window against the streaming run, same draws
+    W = 8
+    shape = (cfg.ransac.num_hypotheses, cfg.detector.num_slots)
+    draws = torch.stack([sample_gumbel(shape, frame_generator(0, t))
+                         for t in range(1, W)])
+    ims = [torch.tensor(np.stack([np.asarray(f[v]) for f in seq.frames[:W]]),
+                        device="cuda") for v in (0, 1)]
+    calib = Calib.from_projections(seq.P1, seq.P2)
+    F = torch.as_tensor(F_from_P_host(seq.P1, seq.P2), dtype=torch.float32,
+                        device="cuda")
+    window_launches = {}
+    for backend in ("dense", "fused", "sweep"):
+        fn = build_batched_odometry(calib, F, cfg, backend=backend)
+        reset_launches()
+        out = fn(*ims, draws.cuda())
+        torch.cuda.synchronize()
+        counts = read_launches()
+        for name in BACKEND_KERNELS[backend]:
+            window_launches[name] = counts[name]
+            check(counts[name] == 2, f"window, {backend}: {name} launched "
+                  f"{counts[name]} times for 2 matcher calls")
+        stream = run(seq.frames[:W], backend=backend)
+        for t in range(1, W):
+            st = stream.stats[t]
+            got = (bool(out.ok[t]), int(out.num_circle[t]),
+                   int(out.num_inliers[t]), int(out.num_lr[t]))
+            check(got == (st["ok"], st["num_circle"], st["num_inliers"],
+                          st["num_lr"]),
+                  f"window, {backend}: frame {t} {got} != streaming {st}")
+        err = float(np.abs(out.motions.cpu().numpy()[1:]
+                           - stream.motions[1:]).max())
+        check(err <= 1e-4, f"window, {backend}: motions differ by {err}")
+        print(f"[window] build_batched_odometry, {W} frames, {backend}: "
+              f"frames 1-{W - 1} == the streaming run on every discrete "
+              f"stat, max |tr| difference {err}; "
+              f"{' and '.join(BACKEND_KERNELS[backend])} 2 launches each "
+              f"for the {W} stereo and {2 * (W - 1)} temporal problems")
+
+    # detector options: card against CPU
+    opt = dataclasses.replace(cfg, detector=dataclasses.replace(
+        cfg.detector, pyramid_levels=2, subpixel=True, sharpen_sigma=3.0,
+        sharpen_auto=True, nms_radius=2))
+    runs = [run_stereo_sequence(seq.frames[:4], seq.P1, seq.P2, opt, seed=0,
+                                device=d) for d in ("cpu", "cuda")]
+    for a, b in zip(runs[1].stats, runs[0].stats):
+        check({k: a[k] for k in STATS} == {k: b[k] for k in STATS},
+              f"options, frame {a['frame']}: card {a} != cpu {b}")
+    err = float(np.abs(runs[1].motions - runs[0].motions).max())
+    check(err <= 1e-4 and runs[1].frame_ok[1:].all(),
+          f"options: card and CPU motions differ by {err}")
+    print(f"[options] pyramid_levels=2, subpixel, sharpen_auto, "
+          f"nms_radius=2, 4 frames: card == CPU on every discrete stat "
+          f"({[s['num_inliers'] for s in runs[1].stats]} inliers), max |tr| "
+          f"difference {err}")
+
+    # keep_features_on_failure: frame 3 blanked
+    frames = list(seq.frames[:6])
+    frames[3] = tuple(np.zeros_like(np.asarray(im)) for im in frames[3])
+    keep = run_stereo_sequence(
+        frames, seq.P1, seq.P2,
+        dataclasses.replace(cfg, keep_features_on_failure=True), seed=0,
+        device="cuda")
+    drop = run(frames)
+    check(keep.frame_ok.tolist() == [False, True, True, False, True, True],
+          f"keep_features_on_failure: ok {keep.frame_ok.tolist()}")
+    check(drop.frame_ok.tolist() == [False, True, True, False, False, True],
+          f"without the hold: ok {drop.frame_ok.tolist()}")
+    ratio = float(keep.motions[4][5] / keep.motions[2][5])
+    check(1.7 < ratio < 2.3, f"the held frame's motion spans {ratio} steps")
+    print(f"[keep] frame 3 blanked: with keep_features_on_failure frame 4 "
+          f"matches against frame 2 (tz {ratio:.3f} steps) and solves; "
+          f"without it frame 4 fails too")
+
+    # world frames through the CLI, at the generator's own default size
+    # (620x188): its host-side ray casting takes about a second a frame
+    # there and several at KITTI size
+    cmd = [sys.executable, "-m", "libviso_torch.cli", "synth", "--world",
+           "--chunk", "4", "--metric", "l1", "--backend", "sweep",
+           "--frames", "10"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=600)
+    check(proc.returncode == 0,
+          f"{' '.join(cmd[1:])} exited {proc.returncode}:\n{proc.stderr}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(out["solved"] == 9 and out["ate_rmse_m"] < 0.2,
+          f"cli synth --world: {out}")
+    print(f"[world] {' '.join(cmd[2:])} (620x188 frames, the generator's "
+          f"default size; {time.perf_counter() - t0:.1f} s with the "
+          f"rendering): {json.dumps(out)}")
+    return window_launches
+
+
 def kernels_line(launches, l1_err, l1_times, serve_launches, fused_err,
                  fused_times, counts):
     """The kernel table: per kernel its main-path launches and, at the
@@ -738,6 +943,7 @@ def kernels_line(launches, l1_err, l1_times, serve_launches, fused_err,
 
 
 def main():
+    t_start = time.perf_counter()
     name, count = device_phase()
     build_phase()
     l1_err, l1_times = kernel_phase()
@@ -745,16 +951,21 @@ def main():
     from libviso_torch.synthetic import generate_sequence
 
     seq = generate_sequence(**KITTI_SEQUENCE)
-    launches, _ = main_path_phase(seq)
+    launches, _, whole = main_path_phase(seq)
     card_vs_cpu_phase(seq)
     entry_point_phase()
     seqs = _serve_sequences(seq)
     fused_err, fused_times, counts = fused_kernel_phase(seqs)
-    serve_launches, _ = serving_phase(seqs)
+    serve_launches, serve_fps = serving_phase(seqs)
     serve_cli_phase()
+    window_launches = stereo_path_phase(seq, seqs, whole, serve_fps)
 
-    print(json.dumps(kernels_line(launches, l1_err, l1_times, serve_launches,
-                                  fused_err, fused_times, counts)))
+    line = kernels_line(launches, l1_err, l1_times, serve_launches,
+                        fused_err, fused_times, counts)
+    for k in line["kernels"]:   # two matcher calls a window
+        k["window_launches"] = window_launches.get(k["name"])
+    print(f"[time] chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}))
 

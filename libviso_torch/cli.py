@@ -1,24 +1,31 @@
-"""Command-line drivers of the PyTorch port (port of ``libviso_tpu/cli.py``,
+"""Command-line entry points of the PyTorch port (port of ``libviso_tpu/cli.py``,
 stereo subcommands).
 
-  python -m libviso_torch.cli synth [--frames N] [--metric l1|l2]
+  python -m libviso_torch.cli synth [--frames N] [--world] [--metric l1|l2]
   python -m libviso_torch.cli kitti RESULT_SHA SEQ [BEGIN END]
       [--kitti-home DIR]        (default $KITTI_HOME)
+      [--checkpoint-every N] [--save-debug]
   python -m libviso_torch.cli serve RESULT_SHA SEQ,SEQ[,...] [--pool N]
-      [--begin B] [--end E]     (several sequences, one step for all)
+      [--begin B] [--end E] [--checkpoint-every N]
+                                (several sequences, one step for all)
+  python -m libviso_torch.cli eval EST GT [--delta D] [--align A] [--plot P]
 
-All take ``--device`` (default ``cuda``); ``--device cuda`` on a machine
-without a card raises: CPU runs ask for ``--device cpu``.  ``--backend``
-picks the matcher route:
+The subcommands take ``--device`` (default ``cuda``); ``--device cuda`` on a
+machine without a card raises: CPU runs ask for ``--device cpu``.
+``--backend`` picks the matcher route:
 - ``dense`` (default): the distance matrix, then gates and row minima in
   PyTorch; with ``--metric l1`` on the card the matrix is the hand-written
   L1 kernel.  The JAX CLI's ``xla`` and ``pallas`` both correspond to it;
 - ``fused``: one fused CUDA kernel for gates, L1 and row minima;
 - ``sweep``: the fused kernel on x-sorted slots, skipping target tiles
   beyond the radius.
-``fused`` and ``sweep`` compute L1 only and need ``--metric l1``.  Flags of
-the JAX CLI that the port does not run yet are recognised and raise
-NotImplementedError naming the ROADMAP.md item that ports them.
+``fused`` and ``sweep`` compute L1 only and need ``--metric l1``.  The
+pipeline flags (``--subpixel``, ``--pyramid``, ``--sharpen``,
+``--sharpen-amount``, ``--sharpen-auto``, ``--nms``, ``--keep-on-failure``,
+``--chunk``) and the health flags are the JAX CLI's, with its defaults.
+Flags of the JAX CLI that the port does not run yet (bundle adjustment,
+loop closure, the mono mode) are recognised and raise NotImplementedError
+naming the ROADMAP.md item that ports them.
 """
 
 from __future__ import annotations
@@ -29,22 +36,12 @@ import os
 import sys
 import time
 
-_OPTIONS = "Queue 1 item 8 (main-path options)"
 # (flag, takes a value, ROADMAP.md item that ports it)
-_NOT_PORTED_CFG = (
-    ("--subpixel", False, _OPTIONS), ("--pyramid", True, _OPTIONS),
-    ("--sharpen", True, _OPTIONS), ("--sharpen-amount", True, _OPTIONS),
-    ("--sharpen-auto", False, _OPTIONS), ("--nms", True, _OPTIONS),
-    ("--keep-on-failure", False, _OPTIONS),
-    ("--chunk", True, "Queue 1 item 7 (stereo pipeline and drivers)"),
-)
 _NOT_PORTED_KITTI = (
-    ("--checkpoint-every", True, _OPTIONS), ("--save-debug", False, _OPTIONS),
     ("--ba-window", True, "Queue 1 item 12 (windowed BA)"),
     ("--loop-closure", False, "Queue 1 item 11 (loop closure)"),
 )
 _NOT_PORTED_SYNTH = (
-    ("--world", False, "Queue 1 item 3 (front-end, world frames)"),
     ("--world-loop", False, "Queue 1 item 11 (loop closure)"),
 )
 
@@ -86,15 +83,78 @@ def _add_common_flags(parser):
              "minima; the JAX CLI's xla and pallas both correspond to it on "
              "the card), fused (one fused L1 kernel) or sweep (the fused "
              "kernel on x-sorted slots); fused and sweep need --metric l1")
-    _add_not_ported(parser, _NOT_PORTED_CFG)
+    parser.add_argument(
+        "--subpixel", action="store_true",
+        help="quadratic subpixel corner refinement")
+    parser.add_argument(
+        "--pyramid", type=int, default=None, metavar="L",
+        help="multi-scale detection over L pyramid levels")
+    parser.add_argument(
+        "--sharpen", type=float, default=None, metavar="SIGMA",
+        help="unsharp-mask preconditioner for defocused imagery: Gaussian "
+             "sigma in px.  Enable when the per-frame `sharpness` stat "
+             "collapses")
+    parser.add_argument(
+        "--sharpen-amount", type=float, default=None, metavar="A",
+        help="high-pass gain for --sharpen (default 4.0)")
+    parser.add_argument(
+        "--sharpen-auto", action="store_true",
+        help="with --sharpen: apply the mask only on frames whose blur "
+             "metric says they are defocused (sharp frames pass through "
+             "unchanged; alone it implies --sharpen 3)")
+    parser.add_argument(
+        "--chunk", type=int, default=1, metavar="K",
+        help="frames per upload: K>1 uploads K frames as one stack and "
+             "steps them in order; the same trajectory bit for bit, results "
+             "K frames at a time; debug runs force K=1")
+    parser.add_argument(
+        "--nms", type=int, default=None, metavar="R",
+        help="non-max suppression radius in px before the per-bin top-k: "
+             "only local maxima compete for the bin's slots (0 = the "
+             "reference's raw winners)")
+    parser.add_argument(
+        "--keep-on-failure", action="store_true",
+        help="transient-dropout recovery: on a failed solve, keep the last "
+             "good frame's features as the match target so the next frame "
+             "recovers the spanning motion (streaming mode only)")
+
+
+def _add_health_flags(parser):
+    """Run-level health-alarm thresholds, shared by every subcommand that
+    prints a `health` block."""
+    from libviso_torch.config import HealthConfig
+
+    d = HealthConfig()
+    parser.add_argument(
+        "--support-ratio-alarm", type=float,
+        default=d.support_ratio_alarm, metavar="R",
+        help="alarm when min per-frame num_inliers/num_circle over the "
+             "run drops below R (default %(default)s)")
+    parser.add_argument(
+        "--motion-jump-alarm", type=float,
+        default=d.motion_jump_alarm, metavar="J",
+        help="alarm when the max weighted 6-dof delta between consecutive "
+             "accepted motions exceeds J (default %(default)s)")
+
+
+def _health_cfg(args):
+    from libviso_torch.config import HealthConfig
+
+    d = HealthConfig()
+    return HealthConfig(
+        support_ratio_alarm=getattr(args, "support_ratio_alarm",
+                                    d.support_ratio_alarm),
+        motion_jump_alarm=getattr(args, "motion_jump_alarm",
+                                  d.motion_jump_alarm))
 
 
 def _config(args):
+    """PipelineConfig with the flags applied; None means the flag was not
+    given and the config default stays."""
     import dataclasses
 
     from libviso_torch.config import PipelineConfig
 
-    _reject_not_ported(args, _NOT_PORTED_CFG)
     cfg = PipelineConfig()
     if args.metric is not None:
         cfg = cfg.with_metric(args.metric)
@@ -102,7 +162,36 @@ def _config(args):
         cfg = dataclasses.replace(
             cfg, ransac=dataclasses.replace(cfg.ransac,
                                             hypothesis_method=args.hyp))
+    det = {}
+    if args.subpixel:
+        det["subpixel"] = True
+    if args.pyramid is not None:
+        det["pyramid_levels"] = args.pyramid
+    if args.sharpen is not None:
+        det["sharpen_sigma"] = args.sharpen
+    if args.sharpen_amount is not None:
+        det["sharpen_amount"] = args.sharpen_amount
+    if args.sharpen_auto:
+        det["sharpen_auto"] = True
+        # --sharpen-auto alone must protect, not do nothing: default to
+        # sigma 3; an explicit --sharpen 0 still errors in the config
+        det.setdefault("sharpen_sigma", 3.0)
+    if args.nms is not None:
+        det["nms_radius"] = args.nms
+    if det:
+        cfg = dataclasses.replace(
+            cfg, detector=dataclasses.replace(cfg.detector, **det))
+    if args.keep_on_failure:
+        cfg = dataclasses.replace(cfg, keep_features_on_failure=True)
     return cfg
+
+
+def _checkpoint_manager(directory, every):
+    if every <= 0:
+        return None
+    from libviso_torch.utils.checkpoint import CheckpointManager
+
+    return CheckpointManager(directory, every=every)
 
 
 def _cmd_kitti(args):
@@ -115,16 +204,27 @@ def _cmd_kitti(args):
         sys.exit("KITTI_HOME not set (flag --kitti-home or env)")
     stream, P1, P2 = _open_sequence(kitti_home, args.seq, args.begin,
                                     args.end)
+    result_dir = os.path.join(kitti_home, "results", args.seq,
+                              args.result_sha)
 
     t0 = time.perf_counter()
-    res = run_stereo_sequence(stream, P1, P2, cfg, seed=args.seed,
-                              device=args.device, backend=args.backend)
+    res = run_stereo_sequence(
+        stream, P1, P2, cfg, seed=args.seed, device=args.device,
+        backend=args.backend, chunk=args.chunk,
+        checkpoint=_checkpoint_manager(
+            os.path.join(result_dir, "checkpoints"), args.checkpoint_every),
+        fingerprint_scope=f"{args.seq}:{args.begin}:{args.end}",
+        dbg_dir=os.path.join(result_dir, "dbg") if args.save_debug else None)
     dt = time.perf_counter() - t0
-    out = _write_results(kitti_home, args.result_sha, args.seq, res)
+    out = _write_results(kitti_home, args.result_sha, args.seq, res,
+                         _health_cfg(args))
     n = len(res.poses)
+    # frames per second over the frames computed in this run: a resumed
+    # run does not claim the restored ones
     print(json.dumps({
         "sequence": args.seq, "frames": n, "device": args.device,
-        "solved": out["solved"], "fps": n / dt if dt > 0 else None,
+        "solved": out["solved"],
+        "fps": res.processed / dt if dt > 0 else None,
         "poses": out["poses"], "health": out["health"],
     }))
 
@@ -145,10 +245,10 @@ def _open_sequence(kitti_home, name, begin, end):
     return stream, P1, P2
 
 
-def _write_results(kitti_home, result_sha, name, res):
+def _write_results(kitti_home, result_sha, name, res, hc):
     """Write a sequence's metrics.jsonl and KITTI-format poses under
-    results/NAME/RESULT_SHA; returns its summary for the output JSON."""
-    from libviso_torch.config import HealthConfig
+    results/NAME/RESULT_SHA; returns its summary for the output JSON.
+    ``hc`` is the HealthConfig of the alarm thresholds."""
     from libviso_torch.io.kitti import save_poses_kitti
     from libviso_torch.utils.metrics import MetricsLogger, health_summary
 
@@ -159,7 +259,6 @@ def _write_results(kitti_home, result_sha, name, res):
             ml.log(s)
     poses_path = os.path.join(result_dir, "data", f"{name}.txt")
     save_poses_kitti(poses_path, res.poses)
-    hc = HealthConfig()
     return {
         "sequence": name, "frames": len(res.poses),
         "solved": int(res.frame_ok.sum()), "poses": poses_path,
@@ -180,19 +279,21 @@ def _cmd_serve(args):
     kitti_home = args.kitti_home or os.environ.get("KITTI_HOME")
     if not kitti_home:
         sys.exit("KITTI_HOME not set (flag --kitti-home or env)")
-    if args.chunk is not None and int(args.chunk) > 1:
+    if args.chunk > 1:
+        # the chunked serving step exists (pipeline/multistream.py::
+        # build_multistream_chunk) but this subcommand steps per timestep:
+        # refuse rather than ignore
         sys.exit("serve does not take --chunk (streams already share each "
                  "step)")
-    args.chunk = None    # --chunk 1 is the default step, not a chunked one
-    if args.checkpoint_every is not None:
-        raise NotImplementedError(
-            "--checkpoint-every is not ported to libviso_torch yet: "
-            "ROADMAP.md Queue 1 item 8 (main-path options)")
     seq_names = args.seqs.split(",")
     if len(seq_names) < 2:
         sys.exit("serve wants >=2 sequences (use `kitti` for one)")
     cfg = _config(args)
     if args.pool > 0:
+        if args.checkpoint_every > 0:
+            sys.exit("--pool does not take --checkpoint-every yet (the "
+                     "lockstep mode checkpoints; the pool's slot state "
+                     "is transient by design)")
         _serve_pool(args, kitti_home, seq_names, cfg)
         return
 
@@ -207,11 +308,18 @@ def _cmd_serve(args):
         [f for f, _, _ in loaded], [p for _, p, _ in loaded],
         [p for _, _, p in loaded], cfg,
         seeds=[args.seed + s for s in range(len(seq_names))],
-        device=args.device, backend=args.backend)
+        device=args.device, backend=args.backend,
+        # one snapshot carries all streams, under a shared _serve
+        # directory (the per-sequence result directories hold poses only)
+        checkpoint=_checkpoint_manager(
+            os.path.join(kitti_home, "results", "_serve", args.result_sha,
+                         "checkpoints"), args.checkpoint_every),
+        fingerprint_scope=f"{args.seqs}:{args.begin}:{args.end}")
     dt = time.perf_counter() - t0
-    out = [_write_results(kitti_home, args.result_sha, name, res)
+    hc = _health_cfg(args)
+    out = [_write_results(kitti_home, args.result_sha, name, res, hc)
            for name, res in zip(seq_names, results)]
-    total = sum(len(res.poses) for res in results)
+    total = sum(res.processed for res in results)
     print(json.dumps({
         "streams": len(seq_names), "device": args.device,
         "aggregate_fps": total / dt if dt > 0 else None,
@@ -254,7 +362,7 @@ def _serve_pool(args, kitti_home, seq_names, cfg):
             idx, name = slot_seq.pop(s)
             res = pool.detach(s)
             out[idx] = _write_results(kitti_home, args.result_sha, name,
-                                      res)
+                                      res, _health_cfg(args))
             total += len(res.poses)
             if queue:
                 attach_next(s)
@@ -268,16 +376,22 @@ def _serve_pool(args, kitti_home, seq_names, cfg):
 
 def _cmd_synth(args):
     from libviso_torch.pipeline.stereo import run_stereo_sequence
-    from libviso_torch.synthetic import generate_sequence
     from libviso_torch.utils.metrics import ate_rmse, rpe_errors
 
     _reject_not_ported(args, _NOT_PORTED_SYNTH)
     cfg = _config(args)
-    seq = generate_sequence(num_frames=args.frames, seed=args.seed)
+    if args.world:
+        from libviso_torch.synthetic_world import generate_world_sequence
+
+        seq = generate_world_sequence(num_frames=args.frames, seed=args.seed)
+    else:
+        from libviso_torch.synthetic import generate_sequence
+
+        seq = generate_sequence(num_frames=args.frames, seed=args.seed)
     t0 = time.perf_counter()
     res = run_stereo_sequence(seq.frames, seq.P1, seq.P2, cfg,
                               seed=args.seed, device=args.device,
-                              backend=args.backend)
+                              backend=args.backend, chunk=args.chunk)
     dt = time.perf_counter() - t0
     terr, rerr = rpe_errors(res.poses, seq.gt_poses)
     print(json.dumps({
@@ -290,6 +404,45 @@ def _cmd_synth(args):
     }))
 
 
+def _cmd_eval(args):
+    """Trajectory evaluation between two KITTI-format pose files."""
+    import numpy as np
+
+    from libviso_torch.io.kitti import load_poses_kitti
+    from libviso_torch.utils.metrics import (
+        ate_rmse,
+        kitti_trajectory_errors,
+        rpe_errors,
+    )
+
+    est = load_poses_kitti(args.est)
+    gt = load_poses_kitti(args.gt)
+    n = min(len(est), len(gt))
+    if n < 2:
+        sys.exit("need at least 2 poses in both files")
+    est, gt = est[:n], gt[:n]
+    terr, rerr = rpe_errors(est, gt, delta=args.delta)
+    out = {
+        "frames": n,
+        "ate_rmse_m": ate_rmse(est, gt, align=args.align),
+        "rpe_trans_mean_m": float(terr.mean()),
+        "rpe_rot_mean_rad": float(rerr.mean()),
+    }
+    if args.align != "none":
+        out["align"] = args.align
+        out["ate_rmse_raw_m"] = ate_rmse(est, gt)
+    out.update(kitti_trajectory_errors(est, gt))
+    if args.plot:
+        from libviso_torch.utils.debug_viz import save_trajectory
+
+        out["plot"] = save_trajectory(args.plot, est, gt)
+    # NaN (e.g. devkit-style errors on clips shorter than the 100 m
+    # segment) is not valid strict JSON: emit null
+    out = {k: (None if isinstance(v, float) and np.isnan(v) else v)
+           for k, v in out.items()}
+    print(json.dumps(out))
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="libviso_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -300,12 +453,24 @@ def main(argv=None):
     k.add_argument("begin", nargs="?", type=int, default=0)
     k.add_argument("end", nargs="?", type=int, default=None)
     k.add_argument("--kitti-home")
+    k.add_argument("--checkpoint-every", type=int, default=0, metavar="N",
+                   help="snapshot the loop state every N frames under "
+                        "results/.../checkpoints and resume from the latest "
+                        "matching checkpoint (0 = off)")
+    k.add_argument("--save-debug", action="store_true",
+                   help="write per-frame debug artifacts under "
+                        "results/.../dbg")
     _add_common_flags(k)
+    _add_health_flags(k)
     _add_not_ported(k, _NOT_PORTED_KITTI)
     k.set_defaults(fn=_cmd_kitti)
 
     s = sub.add_parser("synth", help="synthetic-sequence smoke run")
     s.add_argument("--frames", type=int, default=20)
+    s.add_argument("--world", action="store_true",
+                   help="drive the textured-world renderer instead of the "
+                        "sprite oracle: dense perspective-correct street "
+                        "frames (slower to render, photograph-like)")
     _add_common_flags(s)
     _add_not_ported(s, _NOT_PORTED_SYNTH)
     s.set_defaults(fn=_cmd_synth)
@@ -321,8 +486,12 @@ def main(argv=None):
     v.add_argument("--begin", type=int, default=0)
     v.add_argument("--end", type=int, default=None)
     v.add_argument("--kitti-home")
-    v.add_argument("--checkpoint-every", default=None, help=argparse.SUPPRESS)
+    v.add_argument("--checkpoint-every", type=int, default=0, metavar="N",
+                   help="snapshot the state of all streams every N lockstep "
+                        "timesteps (one checkpoint carries all streams; "
+                        "resume is bit-exact)")
     _add_common_flags(v)
+    _add_health_flags(v)
     v.set_defaults(fn=_cmd_serve)
 
     m = sub.add_parser("mono", help="not ported yet: ROADMAP.md Queue 1 "
@@ -330,6 +499,17 @@ def main(argv=None):
     m.add_argument("rest", nargs=argparse.REMAINDER)
     m.set_defaults(fn=lambda _: _not_ported("mono",
                                             "Queue 1 item 10 (mono)"))
+
+    e = sub.add_parser("eval", help="ATE/RPE + KITTI devkit-style errors "
+                                    "between two pose files")
+    e.add_argument("est", help="estimated poses (KITTI 3x4 rows)")
+    e.add_argument("gt", help="ground-truth poses (KITTI 3x4 rows)")
+    e.add_argument("--delta", type=int, default=1, help="RPE frame gap")
+    e.add_argument("--align", default="none", choices=["none", "se3", "sim3"],
+                   help="pre-align est to gt before ATE: se3 = Horn rigid "
+                        "alignment, sim3 = also solve scale")
+    e.add_argument("--plot", help="write a top-down trajectory PNG here")
+    e.set_defaults(fn=_cmd_eval)
 
     args = p.parse_args(argv)
     args.fn(args)

@@ -6,27 +6,65 @@ default).  The port carries no weights: configuration is what it takes
 over, and ``from_jax_config`` rebuilds any of these classes from an
 instance of its JAX counterpart so both packages run one configuration.
 
-Options the port does not run yet are accepted here, as in the JAX
-package, and rejected with ``NotImplementedError`` by the pipeline
+Options the port does not run yet (the banded and 'l2q8' matchers) are
+accepted here, as in the JAX package, and rejected with
+``NotImplementedError`` by the pipeline
 (``pipeline/stereo.py::check_supported``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
+import torch
+
+
+def pad_axes(c, ndim: int):
+    """A per-row calibration tensor with trailing singleton axes up to
+    ``ndim`` axes; floats pass through."""
+    if isinstance(c, torch.Tensor) and c.dim() < ndim:
+        return c.reshape(*c.shape, *([1] * (ndim - c.dim())))
+    return c
 
 
 @dataclasses.dataclass(frozen=True)
 class Calib:
     """Rectified stereo calibration: f = P1[0,0], cu = P1[0,2],
-    cv = P1[1,2], base = |P2[0,3] / P2[0,0]|."""
+    cv = P1[1,2], base = |P2[0,3] / P2[0,0]|.
+
+    The fields are Python floats, or float32 tensors that hold one value
+    per row of a batch of problems (serving: one calibration per stream).
+    The one layout for such tensors: their shape is that of the batch's
+    leading axes, (S,) for S streams and () for the batch of none, with
+    no trailing singleton axis; the function that uses them gives them
+    the trailing axes of its operands (``against``).
+    """
 
     f: float
     cu: float
     cv: float
     base: float
+
+    def against(self, ndim: int) -> "Calib":
+        """This calibration ready to broadcast against a tensor of ``ndim``
+        axes whose leading axes are the batch's: tensor fields get trailing
+        singleton axes, float fields pass through."""
+        return Calib(*(pad_axes(c, ndim)
+                       for c in (self.f, self.cu, self.cv, self.base)))
+
+    def on(self, device) -> "Calib":
+        """This calibration as float32 tensors on ``device`` (0-d tensors
+        for float fields, made once per calibration and device).  The pose
+        solve runs on these, so that a solo run and a row of a batch go
+        through the same tensor-by-tensor arithmetic: dividing by a Python
+        float is a multiplication by its reciprocal on the card, dividing
+        by a tensor is not."""
+        if isinstance(self.f, torch.Tensor):
+            return Calib(*(c.to(device=device, dtype=torch.float32)
+                           for c in (self.f, self.cu, self.cv, self.base)))
+        return _scalar_calib(self, torch.device(device))
 
     @staticmethod
     def from_projections(P1, P2) -> "Calib":
@@ -39,6 +77,12 @@ class Calib:
             cv=float(P1[1, 2]),
             base=float(abs(P2[0, 3] / P2[0, 0])),
         )
+
+
+@functools.lru_cache(maxsize=64)
+def _scalar_calib(calib: Calib, device) -> Calib:
+    return Calib(*(torch.tensor(c, dtype=torch.float32, device=device)
+                   for c in (calib.f, calib.cu, calib.cv, calib.base)))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -86,6 +86,13 @@ class StereoImageStream:
         self.end = end
         self.prefetch = prefetch
 
+    def skipped(self, n: int) -> "StereoImageStream":
+        """A copy whose iteration starts ``n`` frames later, without
+        decoding the skipped frames (checkpoint resume)."""
+        return StereoImageStream(self.mask_left, self.mask_right,
+                                 begin=self.begin + n, end=self.end,
+                                 prefetch=self.prefetch)
+
     def _paths(self):
         i = self.begin
         while self.end is None or i <= self.end:

@@ -11,6 +11,7 @@ order, so the Harris response rounds as the JAX one does.
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -29,20 +30,6 @@ class Keypoints(NamedTuple):
     xy: torch.Tensor        # (..., num_slots, 2) float pixel coords (x, y)
     response: torch.Tensor  # (..., num_slots) |Harris response|
     valid: torch.Tensor     # (..., num_slots) bool
-
-
-def check_detector_supported(cfg: DetectorConfig):
-    """Raise for detector options the port does not run yet."""
-    todo = "ROADMAP.md Queue 1 item 8 (main-path options)"
-    if cfg.sharpen_sigma > 0 or cfg.sharpen_auto:
-        raise NotImplementedError(f"sharpening is not ported yet: {todo}")
-    if cfg.pyramid_levels > 1:
-        raise NotImplementedError(
-            f"pyramid_levels > 1 is not ported yet: {todo}")
-    if cfg.subpixel:
-        raise NotImplementedError(f"subpixel is not ported yet: {todo}")
-    if cfg.nms_radius > 0:
-        raise NotImplementedError(f"nms_radius > 0 is not ported yet: {todo}")
 
 
 def _reflect_pad(x, r, dim):
@@ -84,6 +71,40 @@ def _conv1d_multi(stack, kernels, axis):
         term = padded.narrow(dim, i, n) * coefs[:, None, None]
         out = term if out is None else out + term
     return out
+
+
+def _gauss_taps(sigma: float, truncate: float = 4.0):
+    """Normalized truncated-Gaussian taps, the kernel of
+    scipy.ndimage.gaussian_filter (``unsharp_mask`` and ``blur_metric``
+    were tuned against that operator)."""
+    radius = int(truncate * sigma + 0.5)
+    raw = [math.exp(-0.5 * (i / sigma) ** 2)
+           for i in range(-radius, radius + 1)]
+    s = sum(raw)
+    return tuple(v / s for v in raw)
+
+
+def unsharp_mask(img, sigma: float, amount: float):
+    """Separable Gaussian unsharp mask of (..., H, W):
+    ``img + amount * (img - G(img))`` clipped to [0, 255], REFLECT_101
+    border (the defocus mitigation of ``DetectorConfig.sharpen_sigma``)."""
+    taps = _gauss_taps(sigma)
+    low = _conv1d(_conv1d(img, taps, 0), taps, 1)
+    return torch.clamp(img + amount * (img - low), 0.0, 255.0)
+
+
+def blur_metric(img):
+    """Per-image defocus measure of (..., H, W) -> (...): the normalized
+    gradient energy ``sqrt(mean |grad G1(I)|^2) / std(G1(I))`` of the
+    sigma-1-smoothed image (the trigger of
+    ``DetectorConfig.sharpen_auto``).  The deviation is the population
+    one, as ``jnp.std``."""
+    taps = _gauss_taps(1.0)
+    sm = _conv1d(_conv1d(img, taps, 0), taps, 1)
+    gx = sm[..., :, 1:] - sm[..., :, :-1]
+    gy = sm[..., 1:, :] - sm[..., :-1, :]
+    ge = torch.sqrt((gx * gx).mean((-2, -1)) + (gy * gy).mean((-2, -1)))
+    return ge / (sm.std((-2, -1), unbiased=False) + 1e-6)
 
 
 def sobel_derivatives(img, ksize=3, dx=True, scale=1.0):
@@ -130,11 +151,12 @@ def detect_harris_binned(img, cfg: DetectorConfig = DetectorConfig(),
 
     The image is cropped to ``nbin * floor(size / nbin)`` on each axis and
     cut into nbiny x nbinx bins; each keeps its ``corners_per_bin``
-    largest |response| pixels (ties to the lowest index).  Slots come in
-    (biny, binx, k) order; slots past the detected corners, and zero
-    responses, have ``valid=False`` and coordinates (0, 0).
+    largest |response| pixels (ties to the lowest index).  With
+    ``cfg.nms_radius`` > 0 only local maxima of |response| within that
+    radius compete (tied maxima all stay).  Slots come in (biny, binx, k)
+    order; slots past the detected corners, and zero responses, have
+    ``valid=False`` and coordinates (0, 0).
     """
-    check_detector_supported(cfg)
     H, W = img.shape[-2:]
     lead = img.shape[:-2]
     resp = harris_response(img, cfg.block_size, cfg.aperture, cfg.harris_k)
@@ -142,6 +164,12 @@ def detect_harris_binned(img, cfg: DetectorConfig = DetectorConfig(),
     k = cfg.corners_per_bin
     nbins = cfg.nbiny * cfg.nbinx
     a = resp[..., : cfg.nbiny * sy, : cfg.nbinx * sx].abs()
+    if cfg.nms_radius > 0:
+        # window max of the cropped response; max_pool2d pads with -inf
+        w = 2 * cfg.nms_radius + 1
+        pooled = F.max_pool2d(a.reshape(-1, 1, *a.shape[-2:]), w, stride=1,
+                              padding=cfg.nms_radius).reshape(a.shape)
+        a = torch.where(a >= pooled, a, torch.zeros_like(a))
     bins = a.reshape(*lead, cfg.nbiny, sy, cfg.nbinx, sx).transpose(-3, -2)
     vals, flat_idx = topk_iterative(bins.reshape(*lead, nbins, sy * sx), k)
 
@@ -168,8 +196,10 @@ def extract_descriptors(img, kp: Keypoints,
                         cfg: DetectorConfig = DetectorConfig()):
     """Sobel-patch descriptors: the (2r+1)^2 window of the horizontal
     Sobel response around each keypoint, zero outside the image, as one
-    index gather.  Returns (..., num_slots, descriptor_dim_padded); the
-    121 -> 128 tail and invalid slots are zero."""
+    index gather.  Fractional (subpixel) coordinates round half to even
+    onto the integral patch grid.  Returns
+    (..., num_slots, descriptor_dim_padded); the 121 -> 128 tail and
+    invalid slots are zero."""
     r = cfg.descriptor_radius
     d = 2 * r + 1
     sob = sobel_derivatives(img, ksize=3, dx=True, scale=1.0)
@@ -189,9 +219,39 @@ def extract_descriptors(img, kp: Keypoints,
     return torch.where(kp.valid[..., None], desc, torch.zeros_like(desc))
 
 
-def detect_and_describe(img, cfg: DetectorConfig = DetectorConfig()):
+def detect_and_describe(img, cfg: DetectorConfig = DetectorConfig(),
+                        sharpen_gate=None):
     """Detector + descriptor for (..., H, W) images of any real dtype
-    (uint8 preferred: a quarter of f32's host-to-device traffic)."""
+    (uint8 preferred: a quarter of f32's host-to-device traffic).
+
+    ``sharpen_gate``: optional bool tensor that replaces
+    ``sharpen_auto``'s per-image blur decision; its shape broadcasts
+    against the images' leading axes.  The stereo front-end passes one
+    gate per pair, so that a pair on either side of the trigger never has
+    one view sharpened and the other not.
+    """
     img = img.to(torch.float32)
+    if cfg.sharpen_sigma > 0:
+        sharp = unsharp_mask(img, cfg.sharpen_sigma, cfg.sharpen_amount)
+        if cfg.sharpen_auto:
+            # both are computed and one selected: no host sync, and a
+            # sharp frame passes through unchanged
+            gate = (blur_metric(img) < cfg.sharpen_trigger
+                    if sharpen_gate is None else sharpen_gate)
+            img = torch.where(gate[..., None, None], sharp, img)
+        else:
+            img = sharp
+    if cfg.pyramid_levels > 1:
+        from libviso_torch.ops.pyramid import detect_and_describe_multiscale
+
+        kp, desc, _ = detect_and_describe_multiscale(
+            img, cfg, levels=cfg.pyramid_levels, subpixel=cfg.subpixel)
+        return kp, desc
     kp = detect_harris_binned(img, cfg)
+    if cfg.subpixel:
+        from libviso_torch.ops.pyramid import subpixel_refine
+
+        resp = harris_response(img, cfg.block_size, cfg.aperture,
+                               cfg.harris_k)
+        kp = subpixel_refine(resp, kp)
     return kp, extract_descriptors(img, kp, cfg)

@@ -2,13 +2,12 @@
 ``libviso_tpu/pipeline/multistream.py``).
 
 Where the JAX package vmaps the whole frame step over S streams, the port
-writes the stream axis out where it pays: one front-end call on the
-(2, S, H, W) image stack, one matcher call on the 3 S match problems with
-per-stream F (on the card one kernel launch for all streams, whichever
-matcher backend), and triangulation and the circle filter over (S, N)
-tensors with per-stream calibration.  The RANSAC + Gauss-Newton solve
-runs per stream, S calls of the same ``build_solve``; a stream axis
-through it is later work (ROADMAP.md).
+writes the stream axis out: one front-end call on the (2, S, H, W) image
+stack, one matcher call on the 3 S match problems with per-stream F (on
+the card one kernel launch for all streams, whichever matcher backend),
+triangulation and the circle filter over (S, N) tensors, and one RANSAC +
+Gauss-Newton solve for all live streams (``solvers/ransac.py`` takes the
+stream axis as a leading batch axis), all with per-stream calibration.
 
 Semantics: stream s consumes the images, calibration and RANSAC draws of
 its solo ``run_stereo_sequence`` (frame t draws from
@@ -17,7 +16,7 @@ stream's values with the per-element arithmetic of the solo step, so the
 discrete per-frame stats equal the solo run's (tests/test_torch_
 multistream.py; motions within 5e-6, poses within 5e-5, as the JAX
 package's contract).  A stream that has run out of frames idles on its
-last frame; its outputs are discarded and its solve is skipped.
+last frame; it is left out of the solve and has no output.
 """
 
 from __future__ import annotations
@@ -31,52 +30,41 @@ from libviso_torch.config import Calib, PipelineConfig
 from libviso_torch.geometry.mvg import F_from_P_host
 from libviso_torch.ops.matching import match_frame_triple
 from libviso_torch.pipeline.stereo import (
+    FrameOutput,
     FrameState,
+    History,
     SequenceResult,
+    SolveInput,
     build_frontend,
     build_solve,
     check_supported,
     empty_state,
     gather_correspondences,
+    hold_state_on_failure,
+    rebuild_state,
     resolve_device,
     sequence_result,
+    state_from_leaves,
+    state_leaves,
+    state_to_leaves,
 )
 from libviso_torch.solvers.ransac import frame_generator, sample_gumbel
 
 
-def _leaves(state):
-    """The tensors of a (nested) FrameState, in field order."""
-    for x in state:
-        if isinstance(x, tuple):
-            yield from _leaves(x)
-        else:
-            yield x
-
-
-def _rebuild(template, leaves):
-    it = iter(leaves)
-
-    def build(t):
-        return type(t)(*(build(x) if isinstance(x, tuple) else next(it)
-                         for x in t))
-
-    return build(template)
-
-
 def stack_states(states) -> FrameState:
     """Stack per-stream FrameStates along a new leading axis."""
-    return _rebuild(states[0], (torch.stack(xs) for xs in
-                                zip(*(list(_leaves(s)) for s in states))))
+    return rebuild_state(states[0], (torch.stack(xs) for xs in zip(
+        *(list(state_leaves(s)) for s in states))))
 
 
 def stream_calib(calibs: Sequence[Calib], device) -> Calib:
-    """The streams' calibrations as one Calib of (S, 1) float32 tensors,
-    which broadcast against (S, N) per-slot tensors."""
-    def col(name):
-        return torch.tensor([[getattr(c, name)] for c in calibs],
+    """The streams' calibrations as one Calib of (S,) float32 tensors, one
+    value per stream (the layout of ``config.Calib``)."""
+    def row(name):
+        return torch.tensor([getattr(c, name) for c in calibs],
                             dtype=torch.float32, device=device)
 
-    return Calib(f=col("f"), cu=col("cu"), cv=col("cv"), base=col("base"))
+    return Calib(f=row("f"), cu=row("cu"), cv=row("cv"), base=row("base"))
 
 
 def build_multistream_step(cfg: PipelineConfig, backend: str = "dense",
@@ -92,7 +80,8 @@ def build_multistream_step(cfg: PipelineConfig, backend: str = "dense",
       where calibs is the list of S Calibs, F (S, 3, 3), states an
       S-stacked FrameState, im1s/im2s (S, H, W) and gumbels a list of S
       (num_hypotheses, num_slots) draws, None for a stream that idles
-      this step.  ``outs`` is the list of S FrameOutputs
+      this step.  All live streams are one batched solve; ``outs`` is
+      the list of S FrameOutputs, each a row of that solve's output
       (None where the stream idled).
     """
     check_supported(cfg, backend)
@@ -100,6 +89,8 @@ def build_multistream_step(cfg: PipelineConfig, backend: str = "dense",
     mark = on_stage or (lambda stage: None)
 
     def step(calibs, F, states, im1s, im2s, gumbels):
+        S = len(gumbels)
+        device = im1s.device
         feats = frontend(im1s, im2s)        # (2, S, H, W): one call
         mark("front_end")
         matches = match_frame_triple(        # 3 S problems: one call
@@ -107,16 +98,29 @@ def build_multistream_step(cfg: PipelineConfig, backend: str = "dense",
             states.d1, states.kp2, states.d2, cfg.stereo_match,
             cfg.temporal_match, F, backend=backend)
         mark("match")
-        new_states, si, _ = gather_correspondences(
-            stream_calib(calibs, im1s.device), feats, states, *matches)
+        calib = stream_calib(calibs, device)
+        new_states, si, _ = gather_correspondences(calib, feats, states,
+                                                   *matches)
         mark("correspondences")
-        outs = []
-        for s, gumbel in enumerate(gumbels):
-            if gumbel is None:
-                outs.append(None)
-                continue
-            solve = build_solve(calibs[s], cfg)
-            outs.append(solve(type(si)(*(x[s] for x in si)), gumbel))
+        live = [s for s, g in enumerate(gumbels) if g is not None]
+        outs: list = [None] * S
+        ok = torch.ones(S, dtype=torch.bool, device=device)
+        if live:
+            if len(live) < S:                # the solve's rows: live only
+                rows = torch.tensor(live, device=device)
+                si = SolveInput(*(x[rows] for x in si))
+                calib = Calib(calib.f[rows], calib.cu[rows], calib.cv[rows],
+                              calib.base[rows])
+            out = build_solve(calib, cfg)(   # all live streams: one call
+                si, torch.stack([gumbels[s] for s in live]))
+            for i, s in enumerate(live):
+                outs[s] = FrameOutput(*(x[i] for x in out))
+            ok = out.ok if len(live) == S else ok.index_put((rows,), out.ok)
+        if cfg.keep_features_on_failure:
+            # an idle stream counts as solved: it has no next frame
+            new_states = hold_state_on_failure(
+                states, new_states, ok, states.kp1.valid.any(-1),
+                cfg.max_keep_age)
         mark("solves")
         return new_states, outs
 
@@ -125,10 +129,31 @@ def build_multistream_step(cfg: PipelineConfig, backend: str = "dense",
 
 def build_multistream_chunk(cfg: PipelineConfig, chunk: int,
                             backend: str = "dense"):
-    """S streams x K frames a step: not ported yet."""
-    raise NotImplementedError(
-        "the chunked multi-stream step is not ported yet: ROADMAP.md "
-        "Queue 1 item 7 (chunk > 1)")
+    """S streams x K frames a call: the S-stream step over a stack of K
+    timesteps, in order, with the states threaded through (the
+    composition of ``pipeline/stereo.py::build_frame_chunk``).  The
+    outputs equal K separate S-stream steps exactly.
+
+    Returns:
+      step(calibs, F, states, lefts, rights, gumbels) -> (new_states, outs)
+      with lefts/rights (S, K, H, W), ``gumbels[s][k]`` stream s's draws
+      for its k-th frame of the chunk (None where it idles) and
+      ``outs[s][k]`` its FrameOutput (None where it idled).
+    """
+    step = build_multistream_step(cfg, backend)
+
+    def chunk_step(calibs, F, states, lefts, rights, gumbels):
+        if lefts.shape[1] != chunk or any(len(g) != chunk for g in gumbels):
+            raise ValueError(f"chunk_step built for {chunk} frames")
+        outs = [[] for _ in gumbels]
+        for k in range(chunk):
+            states, step_outs = step(calibs, F, states, lefts[:, k],
+                                     rights[:, k], [g[k] for g in gumbels])
+            for s, out in enumerate(step_outs):
+                outs[s].append(out)
+        return states, outs
+
+    return chunk_step
 
 
 def jit_multistream_sharded(mesh, cfg: PipelineConfig, chunk: int = 1,
@@ -203,8 +228,9 @@ class StreamPool:
                 f"slot {slot}: frame shape {shape} != pool shape "
                 f"{self._shape} (a pool serves one image shape; open a "
                 "second pool for a second shape)")
-        for row, empty in zip(_leaves(self._states),
-                              _leaves(empty_state(self.cfg, self.device))):
+        for row, empty in zip(
+                state_leaves(self._states),
+                state_leaves(empty_state(self.cfg, self.device))):
             row[slot] = empty                       # in place
         self._calibs[slot] = Calib.from_projections(P1, P2)
         self._Fs[slot] = torch.as_tensor(F_from_P_host(P1, P2),
@@ -273,7 +299,8 @@ def run_multistream(sequences: Sequence, P1s, P2s,
                     seeds: Sequence[int] | None = None, device="cuda",
                     backend: str = "dense", checkpoint=None,
                     draws: Optional[Callable[[int, int], torch.Tensor]] = None,
-                    on_step=None, on_stage=None) -> List[SequenceResult]:
+                    on_step=None, on_stage=None,
+                    fingerprint_scope: str = "") -> List[SequenceResult]:
     """Drive S sequences in lockstep through the S-stream step.
 
     Args:
@@ -285,20 +312,24 @@ def run_multistream(sequences: Sequence, P1s, P2s,
         ``frame_generator(seeds[s], t)``, as its solo run does.
       device: torch device; "cuda" without a card raises.
       backend: the matcher route, "dense", "fused" or "sweep".
-      checkpoint: not ported yet; anything but None raises.
+      checkpoint: optional ``utils.checkpoint.CheckpointManager``, the
+        resume discipline of ``run_stereo_sequence`` with the state of all
+        S streams and every stream's motions, ok flags and stats in one
+        snapshot; ``every`` counts lockstep timesteps.  Draws depend on
+        (seed, t) only, so a resumed serving run is bit-exact.
       draws: optional callable (s, t) -> stream s's Gumbel draws for frame
         t (a test seam, the counterpart of ``run_stereo_sequence``'s).
       on_step: optional callback(t, outs) after each timestep.
       on_stage: optional callback(stage) at the end of each stage of the
         step (``build_multistream_step``).
+      fingerprint_scope: names the input slice; the stream count and the
+        seeds join it, so that a resume with another stream set is refused
+        rather than misaligned.  Lengths stay out of it: resuming with the
+        full frame lists after a cut run is the normal case.
 
     Returns:
       One SequenceResult per stream, of that stream's own length.
     """
-    if checkpoint is not None:
-        raise NotImplementedError(
-            "checkpoints are not ported yet: ROADMAP.md Queue 1 item 8 "
-            "(main-path options)")
     S = len(sequences)
     if len(P1s) != S or len(P2s) != S:
         raise ValueError(f"{S} sequences need {S} P1s and P2s")
@@ -313,9 +344,56 @@ def run_multistream(sequences: Sequence, P1s, P2s,
                                   for s in range(S)]),
                         dtype=torch.float32, device=device)
     lengths = [len(fr) for fr in sequences]
+    T = max(lengths)
     states = stack_states([empty_state(cfg, device) for _ in range(S)])
-    outs = [[] for _ in range(S)]
-    for t in range(max(lengths)):
+    hists = [History() for _ in range(S)]
+    t0 = 0
+    fingerprint = None
+    if checkpoint is not None:
+        from libviso_torch.utils.checkpoint import (
+            Checkpoint,
+            config_fingerprint,
+        )
+
+        fingerprint = config_fingerprint(
+            cfg, int(seeds[0]), backend,
+            scope=(f"multistream:S={S}:seeds={list(map(int, seeds))}:"
+                   f"{fingerprint_scope}"))
+        ck = checkpoint.latest()
+        if ck is not None:
+            if ck.fingerprint != fingerprint:
+                raise ValueError(
+                    "checkpoint fingerprint mismatch: written with a "
+                    f"different stream set / cfg ({ck.fingerprint} != "
+                    f"{fingerprint})")
+            states = state_from_leaves(ck.state_leaves, device)
+            t0 = ck.next_frame
+            for s in range(S):
+                n = min(t0, lengths[s])
+                hists[s] = History(ck.motions[:n, s], ck.oks[:n, s],
+                                    [ck.stats[t][s] for t in range(n)])
+
+    pending = [[] for _ in range(S)]   # per stream: (t, FrameOutput)
+
+    def snapshot(next_frame):
+        """All streams in one checkpoint: (next_frame, S, ...) arrays, rows
+        past a stream's end zero (None among the stats)."""
+        motions = np.zeros((next_frame, S, 6), np.float32)
+        oks = np.zeros((next_frame, S), bool)
+        stats = [[None] * S for _ in range(next_frame)]
+        for s in range(S):
+            hists[s].flush(pending[s])
+            n = len(hists[s].motions)
+            motions[:n, s] = hists[s].motions_array()
+            oks[:n, s] = hists[s].oks
+            for t in range(n):
+                stats[t][s] = hists[s].stats[t]
+        checkpoint.save(Checkpoint(
+            next_frame=next_frame, motions=motions, oks=oks,
+            state_leaves=state_to_leaves(states), stats=stats,
+            fingerprint=fingerprint))
+
+    for t in range(t0, T):
         frames = [sequences[s][min(t, lengths[s] - 1)] for s in range(S)]
         gumbels = [draws(s, t).to(device) if t < lengths[s] else None
                    for s in range(S)]
@@ -325,7 +403,13 @@ def run_multistream(sequences: Sequence, P1s, P2s,
                                  gumbels)
         for s in range(S):
             if t < lengths[s]:
-                outs[s].append(step_outs[s])
+                pending[s].append((t, step_outs[s]))
         if on_step is not None:
             on_step(t, step_outs)
-    return [sequence_result(o) for o in outs]
+        if checkpoint is not None and (t + 1) % checkpoint.every == 0:
+            snapshot(t + 1)   # the only read-back inside the loop
+    results = []
+    for s in range(S):
+        hists[s].flush(pending[s])
+        results.append(hists[s].result(processed=max(0, lengths[s] - t0)))
+    return results

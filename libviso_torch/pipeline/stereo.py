@@ -7,24 +7,28 @@ tables with -1 sentinels, and the previous frame's memory an explicit
 ``FrameState``.  The step runs eagerly on the device its inputs live on;
 the RANSAC Gumbel scores are an argument of the step, so a run's draws
 can be fixed from outside (the parity tests feed the JAX package's).
+
+The host loop keeps every per-frame output on the device until a checkpoint
+or the end of the run asks for it, so no step waits for the host to read
+the one before.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Iterable, NamedTuple, Optional
+from typing import Callable, Iterable, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from libviso_torch.config import Calib, PipelineConfig
+from libviso_torch.config import Calib, PipelineConfig, pad_axes
 from libviso_torch.geometry.mvg import F_from_P_host
 from libviso_torch.geometry.se3 import chain_motions, pose_vector_to_matrix
 from libviso_torch.geometry.triangulate import triangulate_rectified
 from libviso_torch.ops.circle import circle_filter
 from libviso_torch.ops.features import (
     Keypoints,
-    check_detector_supported,
+    blur_metric,
     detect_and_describe,
 )
 from libviso_torch.ops.matching import (
@@ -32,6 +36,7 @@ from libviso_torch.ops.matching import (
     check_match_supported,
     match_frame_triple,
 )
+from libviso_torch.solvers.gauss_newton import stereo_predict
 from libviso_torch.solvers.ransac import (
     frame_generator,
     ransac_pose,
@@ -49,7 +54,9 @@ class FrameState(NamedTuple):
     match_lr: torch.Tensor   # (N,) left-slot -> right-slot
     X: torch.Tensor          # (N, 3) triangulated 3D per left slot
     X_valid: torch.Tensor    # (N,) bool
-    fail_age: torch.Tensor   # () int (keep_features_on_failure; always 0)
+    # consecutive solves that failed while these features were held as
+    # the match target (cfg.keep_features_on_failure; 0 otherwise)
+    fail_age: torch.Tensor   # () int32
 
 
 class FrameOutput(NamedTuple):
@@ -61,6 +68,21 @@ class FrameOutput(NamedTuple):
     num_kp1: torch.Tensor      # () detected left corners
     rms: torch.Tensor          # () reprojection RMS over the support
     sharpness: torch.Tensor    # () mean |Harris response| of left corners
+
+
+class FrameDebug(NamedTuple):
+    """Extra per-frame tensors for the debug artifact writer."""
+
+    circle: object            # CircleResult
+    inliers: torch.Tensor     # (N,) bool RANSAC support mask
+    obs: torch.Tensor         # (N, 4) current observations per left slot
+    predict: torch.Tensor     # (N, 4) reprojections under the estimate
+    # this frame's own detections and LR matches: under
+    # keep_features_on_failure a failed frame's state holds the previous
+    # frame's features, which are not this frame's
+    kp1: Keypoints
+    kp2: Keypoints
+    match_lr: torch.Tensor    # (N,)
 
 
 class Feats(NamedTuple):
@@ -86,17 +108,13 @@ class SolveInput(NamedTuple):
 
 def check_supported(cfg: PipelineConfig, backend: str = "dense"):
     """Raise ``NotImplementedError`` for options the port does not run
-    yet, naming the ROADMAP item that ports them, and ``ValueError`` for a
-    matcher backend the metrics cannot take."""
+    yet (the banded and 'l2q8' matchers), naming the ROADMAP item that
+    ports them, and ``ValueError`` for a matcher backend the metrics
+    cannot take."""
     check_backend(backend, cfg.stereo_match.metric)
     check_backend(backend, cfg.temporal_match.metric)
-    check_detector_supported(cfg.detector)
     check_match_supported(cfg.stereo_match)
     check_match_supported(cfg.temporal_match)
-    if cfg.keep_features_on_failure:
-        raise NotImplementedError(
-            "keep_features_on_failure is not ported yet: ROADMAP.md "
-            "Queue 1 item 8 (main-path options)")
 
 
 def empty_state(cfg: PipelineConfig, device="cpu",
@@ -114,11 +132,75 @@ def empty_state(cfg: PipelineConfig, device="cpu",
         fail_age=torch.zeros((), dtype=torch.int32, device=device))
 
 
+def state_leaves(state):
+    """The tensors of a (nested) FrameState, in field order: kp1 (xy,
+    response, valid), kp2, d1, d2, match_lr, X, X_valid, fail_age.  It is
+    the order of the JAX package's pytree leaves."""
+    for x in state:
+        if isinstance(x, tuple):
+            yield from state_leaves(x)
+        else:
+            yield x
+
+
+def rebuild_state(template, leaves):
+    """A FrameState shaped like ``template`` from an iterable of leaves."""
+    it = iter(leaves)
+
+    def build(t):
+        return type(t)(*(build(x) if isinstance(x, tuple) else next(it)
+                         for x in t))
+
+    return build(template)
+
+
+def state_to_leaves(state: FrameState) -> List[np.ndarray]:
+    """A FrameState (with any leading stream axes) as numpy arrays in
+    ``state_leaves`` order, with the JAX package's dtypes (match_lr
+    int32): what a checkpoint stores."""
+    out = [x.cpu().numpy() for x in state_leaves(state)]
+    out[8] = out[8].astype(np.int32)
+    return out
+
+
+def state_from_leaves(leaves, device="cpu") -> FrameState:
+    """The port's FrameState on ``device`` from numpy leaves in
+    ``state_leaves`` order, as ``state_to_leaves`` writes them or as
+    ``jax.tree_util.tree_leaves`` gives them for the JAX package's
+    FrameState: the state carried across from a checkpoint or from the
+    other package.  Dtypes become the port's (float32, bool, int64 match
+    tables, int32 fail_age)."""
+    it = iter(leaves)
+
+    def t(dtype):
+        return torch.tensor(np.asarray(next(it))).to(device=device,
+                                                     dtype=dtype)
+
+    def kp():
+        return Keypoints(xy=t(torch.float32), response=t(torch.float32),
+                         valid=t(torch.bool))
+
+    return FrameState(kp1=kp(), kp2=kp(), d1=t(torch.float32),
+                      d2=t(torch.float32), match_lr=t(torch.long),
+                      X=t(torch.float32), X_valid=t(torch.bool),
+                      fail_age=t(torch.int32))
+
+
 def build_frontend(cfg: PipelineConfig):
-    """frontend(im1, im2) -> Feats: both views detected as one batch."""
+    """frontend(im1, im2) -> Feats: both views detected as one batch.
+    The images may carry leading stream axes, (S, H, W)."""
+    det = cfg.detector
 
     def frontend(im1, im2) -> Feats:
-        kps, ds = detect_and_describe(torch.stack([im1, im2]), cfg.detector)
+        ims = torch.stack([im1, im2])
+        gate = None
+        if det.sharpen_sigma > 0 and det.sharpen_auto:
+            # one defocus decision per stereo pair (per stream when
+            # serving), the mean of the two views' metrics: descriptors of
+            # a sharpened and an unsharpened view stop matching
+            gate = (blur_metric(ims.to(torch.float32)).mean(0)
+                    < det.sharpen_trigger)
+        kps, ds = detect_and_describe(ims, det, sharpen_gate=gate)
         kp1, kp2 = (Keypoints(*(x[i] for x in kps)) for i in range(2))
         return Feats(kp1=kp1, d1=ds[0], kp2=kp2, d2=ds[1])
 
@@ -132,7 +214,7 @@ def gather_correspondences(calib: Calib, feats: Feats, state: FrameState,
     CircleResult).
 
     Every input may carry leading stream dims; ``calib``'s fields are then
-    tensors that broadcast against them ((S, 1)), one row per stream.
+    (S,) tensors, one value per stream (``config.Calib``).
     """
     kp1, d1, kp2, d2 = feats
 
@@ -179,50 +261,128 @@ def build_prepare(calib: Calib, F, cfg: PipelineConfig,
     return prepare
 
 
-def build_solve(calib: Calib, cfg: PipelineConfig):
-    """solve(si, gumbel) -> FrameOutput: the RANSAC + GN pose solve."""
+def build_solve(calib: Calib, cfg: PipelineConfig, debug: bool = False):
+    """solve(si, gumbel) -> FrameOutput: the RANSAC + GN pose solve.
 
-    def solve(si: SolveInput, gumbel) -> FrameOutput:
+    ``si`` and ``gumbel`` may carry leading batch axes (streams), with
+    ``calib`` holding one value per row: all rows are then one batched
+    solve and the FrameOutput has the same leading axes.  With ``debug``
+    it returns (FrameOutput, support mask, reprojections), the solve's
+    share of a FrameDebug."""
+
+    def solve(si: SolveInput, gumbel):
         est = ransac_pose(si.Xp, si.obs, si.pts_valid, calib, cfg.ransac,
                           gumbel=gumbel)
         ok = est.ok & (si.circ_count >= cfg.min_circle_matches)
-        return FrameOutput(
-            tr=torch.where(ok, est.tr, torch.zeros_like(est.tr)), ok=ok,
-            num_circle=si.circ_count, num_inliers=est.num_inliers,
+        out = FrameOutput(
+            tr=torch.where(ok[..., None], est.tr, torch.zeros_like(est.tr)),
+            ok=ok, num_circle=si.circ_count, num_inliers=est.num_inliers,
             num_lr=si.num_lr, num_kp1=si.num_kp1, rms=est.rms,
             sharpness=si.sharpness)
+        if debug:
+            predict, _ = stereo_predict(est.tr, si.Xp,
+                                        calib.on(si.Xp.device))
+            return out, est.inliers, predict
+        return out
 
     return solve
 
 
+def hold_state_on_failure(state: FrameState, new_state: FrameState, ok,
+                          has_history, max_age: int) -> FrameState:
+    """Dropout recovery (``cfg.keep_features_on_failure``): where the
+    solve failed, hold the previous state as the next frame's match target
+    instead of the bad frame's, unless the held state is empty
+    (``has_history`` False at start-up) or has been held ``max_age`` times
+    already (a scene that really changed must re-sync, not pin).
+
+    ``ok`` and ``has_history`` are bool tensors shaped like the states'
+    leading stream axes, () for one stream and (S,) when serving.  A
+    ``torch.where`` over the state's tensors: no host sync.
+    """
+    keep = (~ok) & has_history & (state.fail_age < max_age)
+
+    def pick(old, new):
+        return torch.where(pad_axes(keep, old.dim()), old, new)
+
+    merged = rebuild_state(state, (pick(o, n) for o, n in zip(
+        state_leaves(state), state_leaves(new_state))))
+    return merged._replace(fail_age=torch.where(
+        keep, state.fail_age + 1, torch.zeros_like(state.fail_age)))
+
+
 def build_backend(calib: Calib, F, cfg: PipelineConfig,
-                  backend: str = "dense"):
-    """backend_fn(feats, state, gumbel) -> (new_state, FrameOutput)."""
+                  backend: str = "dense", debug: bool = False):
+    """backend_fn(feats, state, gumbel) ->
+    (new_state, FrameOutput[, FrameDebug])."""
     prepare = build_prepare(calib, F, cfg, backend=backend)
-    solve = build_solve(calib, cfg)
+    solve = build_solve(calib, cfg, debug=debug)
 
     def backend_fn(feats: Feats, state: FrameState, gumbel):
-        new_state, si, _ = prepare(feats, state)
-        return new_state, solve(si, gumbel)
+        new_state, si, circ = prepare(feats, state)
+        cur_match_lr = new_state.match_lr   # before the hold: this frame's
+        res = solve(si, gumbel)
+        out = res[0] if debug else res
+        if cfg.keep_features_on_failure:
+            new_state = hold_state_on_failure(
+                state, new_state, out.ok, state.kp1.valid.any(-1),
+                cfg.max_keep_age)
+        if debug:
+            _, inliers, predict = res
+            dbg = FrameDebug(circle=circ, inliers=inliers, obs=si.obs,
+                             predict=predict, kp1=feats.kp1, kp2=feats.kp2,
+                             match_lr=cur_match_lr)
+            return new_state, out, dbg
+        return new_state, out
 
     return backend_fn
 
 
 def build_frame_step(calib: Calib, F, cfg: PipelineConfig,
-                     backend: str = "dense"):
-    """step(state, im1, im2, gumbel) -> (new_state, FrameOutput).
+                     backend: str = "dense", debug: bool = False):
+    """step(state, im1, im2, gumbel) -> (new_state, FrameOutput[,
+    FrameDebug]).
 
     ``gumbel`` is the frame's (num_hypotheses, num_slots) RANSAC draw;
-    ``backend`` the matcher route: "dense", "fused" or "sweep".
+    ``backend`` the matcher route: "dense", "fused" or "sweep"; ``debug``
+    adds the tensors the artifact writer needs.
     """
     check_supported(cfg, backend)
     frontend = build_frontend(cfg)
-    backend_fn = build_backend(calib, F, cfg, backend=backend)
+    backend_fn = build_backend(calib, F, cfg, backend=backend, debug=debug)
 
     def step(state: FrameState, im1, im2, gumbel):
         return backend_fn(frontend(im1, im2), state, gumbel)
 
     return step
+
+
+def build_frame_chunk(calib: Calib, F, cfg: PipelineConfig, chunk: int,
+                      backend: str = "dense"):
+    """K consecutive frame steps on one uploaded stack of frames.
+
+    chunk_step(state, lefts, rights, gumbels) -> (new_state, FrameOutput
+    stacked over the leading K axis), with lefts/rights (K, H, W) and
+    gumbels (K, num_hypotheses, num_slots).  The frames are stepped in
+    order through ``build_frame_step``'s step with the state threaded
+    through, so the outputs equal K separate steps exactly; what changes
+    is that K frames and their draws reach the device as one transfer
+    each.  The cost is latency: results arrive K frames at a time and the
+    host must have K frames on hand, as a recorded sequence does; a live
+    loop that needs each pose at once keeps chunk 1.
+    """
+    step = build_frame_step(calib, F, cfg, backend=backend)
+
+    def chunk_step(state: FrameState, lefts, rights, gumbels):
+        if not len(lefts) == len(rights) == len(gumbels) == chunk:
+            raise ValueError(f"chunk_step built for {chunk} frames")
+        outs = []
+        for im1, im2, g in zip(lefts, rights, gumbels):
+            state, out = step(state, im1, im2, g)
+            outs.append(out)
+        return state, FrameOutput(*(torch.stack(xs) for xs in zip(*outs)))
+
+    return chunk_step
 
 
 @dataclasses.dataclass
@@ -231,6 +391,8 @@ class SequenceResult:
     motions: np.ndarray      # (T, 6) per-frame motion vectors
     frame_ok: np.ndarray     # (T,) bool
     stats: list              # per-frame dicts (match counts etc.)
+    processed: int = 0       # frames computed in this run (not those a
+    #                          checkpoint restored): throughput's count
 
 
 def resolve_device(device) -> torch.device:
@@ -244,55 +406,177 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+def _to_host(tree):
+    """A (nested) tuple of tensors as numpy arrays."""
+    if isinstance(tree, tuple):
+        return type(tree)(*(_to_host(x) for x in tree))
+    return tree.cpu().numpy()
+
+
 def run_stereo_sequence(frames: Iterable, P1, P2,
                         cfg: PipelineConfig = PipelineConfig(),
                         seed: int = 0, device="cuda", on_frame=None,
                         draws: Optional[Callable[[int], torch.Tensor]] = None,
                         chunk: int = 1, dbg_dir=None, checkpoint=None,
-                        backend: str = "dense") -> SequenceResult:
+                        backend: str = "dense",
+                        fingerprint_scope: str = "") -> SequenceResult:
     """Stream stereo pairs through the per-frame step on ``device``.
 
     Args:
       frames: iterable of (im_left, im_right) uint8/float arrays (H, W).
       P1, P2: 3x4 rectified projection matrices.
-      on_frame: optional callback(frame_index, FrameOutput).
+      on_frame: optional callback(frame_index, FrameOutput); the output's
+        tensors are still on the device.
       draws: optional callable t -> (num_hypotheses, num_slots) Gumbel
         scores for frame t (a test seam).  By default frame t draws from
         ``frame_generator(seed, t)`` on the CPU, so a run on the card and
         one on the CPU see the same draws.
-      chunk, dbg_dir, checkpoint: accepted for the JAX signature; values
-        other than the defaults are not ported yet and raise.
+      chunk: frames per upload (``build_frame_chunk``).  > 1 buffers that
+        many frames, uploads them as one stack and steps them in order:
+        the same outputs bit for bit, arriving ``chunk`` at a time.  The
+        tail of a sequence shorter than the next multiple of ``chunk``
+        runs through the per-frame step.  Debug runs (``dbg_dir``) stay
+        per frame, since the artifact writer reads every frame back.
+      dbg_dir: write per-frame debug artifacts here
+        (``utils/debug_viz.py``).
+      checkpoint: optional ``utils.checkpoint.CheckpointManager``.  The
+        loop state is saved every ``checkpoint.every`` frames (at the end
+        of the chunk that crosses such a boundary) and, when a checkpoint
+        with this run's fingerprint exists, the run resumes after its
+        last frame; frames already done are skipped.  Frame t's draws
+        depend on (seed, t) only, so a resumed run equals an
+        uninterrupted one bit for bit.
       backend: the matcher route, "dense" (default), "fused" or "sweep"
         (``ops/matching.py``); the fused routes need metric 'l1'.
+      fingerprint_scope: names the input slice (e.g. a begin/end range);
+        a checkpoint written under another scope is refused.
     """
-    if chunk != 1:
-        raise NotImplementedError(
-            "chunk > 1 is not ported yet: ROADMAP.md Queue 1 item 7")
-    if dbg_dir is not None or checkpoint is not None:
-        raise NotImplementedError(
-            "debug dumps and checkpoints are not ported yet: ROADMAP.md "
-            "Queue 1 item 8 (main-path options)")
     device = resolve_device(device)
     calib = Calib.from_projections(P1, P2)
     F = torch.as_tensor(F_from_P_host(P1, P2), dtype=torch.float32,
                         device=device)
-    step = build_frame_step(calib, F, cfg, backend=backend)
+    debug = dbg_dir is not None
+    step = build_frame_step(calib, F, cfg, backend=backend, debug=debug)
     shape = (cfg.ransac.num_hypotheses, cfg.detector.num_slots)
     if draws is None:
         draws = lambda t: sample_gumbel(  # noqa: E731
             shape, frame_generator(seed, t))
+    if debug:
+        from libviso_torch.ops.matching import MatchResult
+        from libviso_torch.utils.debug_viz import DebugDumper
+
+        dumper = DebugDumper(dbg_dir)
 
     state = empty_state(cfg, device)
-    outs = []
-    for t, (im1, im2) in enumerate(frames):
-        im1 = torch.tensor(np.asarray(im1), device=device)
-        im2 = torch.tensor(np.asarray(im2), device=device)
-        state, out = step(state, im1, im2, draws(t).to(device))
-        outs.append(out)
+    hist = History()
+    t0 = 0
+    fingerprint = None
+    if checkpoint is not None:
+        from libviso_torch.utils.checkpoint import (
+            Checkpoint,
+            config_fingerprint,
+        )
+
+        fingerprint = config_fingerprint(cfg, seed, backend,
+                                         scope=fingerprint_scope)
+        ck = checkpoint.latest()
+        if ck is not None:
+            if ck.fingerprint != fingerprint:
+                raise ValueError(
+                    "checkpoint fingerprint mismatch: checkpoint was "
+                    "written with different cfg/seed/backend "
+                    f"({ck.fingerprint} != {fingerprint})")
+            state = state_from_leaves(ck.state_leaves, device)
+            hist = History(ck.motions, ck.oks, ck.stats)
+            t0 = ck.next_frame
+
+    def snapshot(next_frame):
+        hist.flush(pending)
+        checkpoint.save(Checkpoint(
+            next_frame=next_frame, motions=hist.motions_array(),
+            oks=np.asarray(hist.oks, bool),
+            state_leaves=state_to_leaves(state), stats=hist.stats,
+            fingerprint=fingerprint))
+
+    start = 0
+    if t0 and hasattr(frames, "skipped"):
+        frames = frames.skipped(t0)   # do not decode what is already done
+        start = t0
+    # outputs stay on the device until a snapshot or the end: reading one
+    # inside the loop would make every step wait for the one before
+    pending = []
+
+    def emit(t, out):
+        pending.append((t, out))
         if on_frame is not None:
             on_frame(t, out)
 
-    return sequence_result(outs)
+    def upload(image):
+        return torch.tensor(np.asarray(image), device=device)
+
+    use_chunk = chunk > 1 and not debug
+    cstep = (build_frame_chunk(calib, F, cfg, chunk, backend=backend)
+             if use_chunk else None)
+    buf = []          # [(t, left, right)] host frames of the open chunk
+    prev_host = None  # the previous frame's images, for the debug quads
+
+    for t, (im1, im2) in enumerate(frames, start=start):
+        if t < t0:    # covered by the restored checkpoint
+            continue
+        if use_chunk:
+            buf.append((t, im1, im2))
+            if len(buf) < chunk:
+                continue
+            ts = [b[0] for b in buf]
+            state, outs = cstep(
+                state, upload(np.stack([np.asarray(b[1]) for b in buf])),
+                upload(np.stack([np.asarray(b[2]) for b in buf])),
+                torch.stack([draws(ft) for ft in ts]).to(device))
+            buf.clear()
+            for i, ft in enumerate(ts):
+                emit(ft, FrameOutput(*(x[i] for x in outs)))
+            if checkpoint is not None and (
+                    (ts[-1] + 1) // checkpoint.every
+                    > ts[0] // checkpoint.every):
+                # a snapshot boundary fell inside this chunk: snapshot at
+                # its end (resume stays exact, only the cadence shifts)
+                snapshot(ts[-1] + 1)
+            continue
+        left, right = upload(im1), upload(im2)
+        if debug:
+            prev_state = state
+            state, out, dbg = step(state, left, right, draws(t).to(device))
+            dbg = _to_host(dbg)
+            host = (np.asarray(im1), np.asarray(im2))
+            dumper.frame(
+                t, host[0], host[1], dbg.kp1, dbg.kp2,
+                MatchResult(idx=dbg.match_lr,
+                            dist=np.zeros_like(dbg.kp1.response),
+                            valid=dbg.match_lr >= 0),
+                prev=((*prev_host, _to_host(prev_state.kp1),
+                       _to_host(prev_state.kp2)) if prev_host else None),
+                circ=dbg.circle if t > 0 else None,
+                predict=dbg.predict if t > 0 else None,
+                obs=dbg.obs if t > 0 else None,
+                inliers=dbg.inliers if t > 0 else None)
+            prev_host = host
+        else:
+            state, out = step(state, left, right, draws(t).to(device))
+        emit(t, out)
+        if checkpoint is not None and (t + 1) % checkpoint.every == 0:
+            snapshot(t + 1)
+
+    for ft, im1, im2 in buf:
+        # a tail shorter than one chunk: the per-frame step, the same
+        # draws, the same result
+        state, out = step(state, upload(im1), upload(im2),
+                          draws(ft).to(device))
+        emit(ft, out)
+
+    hist.flush(pending)
+    if checkpoint is not None and hist.motions:
+        snapshot(len(hist.motions))   # so that a rerun does nothing
+    return hist.result(processed=len(hist.motions) - t0)
 
 
 _JUMP_WEIGHTS = np.array([10.0, 10.0, 10.0, 1.0, 1.0, 1.0])
@@ -300,7 +584,9 @@ _JUMP_WEIGHTS = np.array([10.0, 10.0, 10.0, 1.0, 1.0, 1.0])
 
 def _motion_jump(tr, ok, prev_motions, prev_oks):
     """Weighted 6-dof delta to the previous motion when both were accepted
-    (the dominant-mover health signal), in float64."""
+    (the dominant-mover health signal).  In float64: a checkpoint stores
+    motions as float64 copies of the float32 values, and a fixed compute
+    dtype keeps the stat the same across a resume."""
     if ok and prev_oks and prev_oks[-1]:
         d = (np.asarray(tr, np.float64)
              - np.asarray(prev_motions[-1], np.float64)) * _JUMP_WEIGHTS
@@ -308,34 +594,56 @@ def _motion_jump(tr, ok, prev_motions, prev_oks):
     return 0.0
 
 
-def sequence_result(outs) -> SequenceResult:
-    """SequenceResult of one sequence's per-frame outputs, frame 0 first:
-    stats, motions and chained poses.  The solo, multi-stream and pool
-    drivers all build their results here."""
-    motions, oks, stats = [], [], []
-    for t, out in enumerate(outs):
-        out = FrameOutput(*(x.cpu() for x in out))
-        ok = bool(out.ok) and t != 0  # the reference skips frame 0
-        tr = out.tr.numpy()
-        jump = _motion_jump(tr, ok, motions, oks)
-        motions.append(tr)
-        oks.append(ok)
-        stats.append({
-            "frame": t, "ok": ok,
-            "num_kp1": int(out.num_kp1), "num_lr": int(out.num_lr),
-            "num_circle": int(out.num_circle),
-            "num_inliers": int(out.num_inliers),
-            "reproj_rms": float(out.rms),
-            "sharpness": float(out.sharpness), "motion_jump": jump,
-        })
+class History:
+    """One sequence's record on the host: motions, ok flags and stats,
+    filled from the device's outputs at a flush."""
 
-    if not motions:
-        return SequenceResult(poses=np.zeros((0, 4, 4)),
-                              motions=np.zeros((0, 6)),
-                              frame_ok=np.zeros((0,), bool), stats=[])
-    motions = np.stack(motions)
-    oks_arr = np.asarray(oks, bool)
-    Ts = pose_vector_to_matrix(torch.from_numpy(motions))
-    poses = chain_motions(Ts, torch.from_numpy(oks_arr)).numpy()
-    return SequenceResult(poses=poses, motions=motions, frame_ok=oks_arr,
-                          stats=stats)
+    def __init__(self, motions=(), oks=(), stats=()):
+        self.motions = [np.asarray(m, np.float32) for m in motions]
+        self.oks = [bool(o) for o in oks]
+        self.stats = list(stats)
+
+    def flush(self, pending):
+        """Read the pending (frame, FrameOutput) pairs back, in order, and
+        empty the list.  The one place that waits for the device."""
+        for t, out in pending:
+            out = FrameOutput(*(x.cpu() for x in out))
+            ok = bool(out.ok) and t != 0  # the reference skips frame 0
+            tr = out.tr.numpy()
+            jump = _motion_jump(tr, ok, self.motions, self.oks)
+            self.motions.append(tr)
+            self.oks.append(ok)
+            self.stats.append({
+                "frame": t, "ok": ok,
+                "num_kp1": int(out.num_kp1), "num_lr": int(out.num_lr),
+                "num_circle": int(out.num_circle),
+                "num_inliers": int(out.num_inliers),
+                "reproj_rms": float(out.rms),
+                "sharpness": float(out.sharpness), "motion_jump": jump,
+            })
+        pending.clear()
+
+    def motions_array(self):
+        return (np.stack(self.motions) if self.motions
+                else np.zeros((0, 6), np.float32))
+
+    def result(self, processed: int) -> SequenceResult:
+        if not self.motions:
+            return SequenceResult(poses=np.zeros((0, 4, 4)),
+                                  motions=np.zeros((0, 6)),
+                                  frame_ok=np.zeros((0,), bool), stats=[],
+                                  processed=0)
+        motions = self.motions_array()
+        oks = np.asarray(self.oks, bool)
+        Ts = pose_vector_to_matrix(torch.from_numpy(motions))
+        poses = chain_motions(Ts, torch.from_numpy(oks)).numpy()
+        return SequenceResult(poses=poses, motions=motions, frame_ok=oks,
+                              stats=self.stats, processed=processed)
+
+
+def sequence_result(outs) -> SequenceResult:
+    """SequenceResult of one sequence's per-frame outputs, frame 0 first
+    (the multi-stream and pool loops build their results here)."""
+    hist = History()
+    hist.flush(list(enumerate(outs)))
+    return hist.result(processed=len(outs))

@@ -14,19 +14,23 @@ integer-valued descriptors (every sum is an integer below 2^24, exact in
 float32 in any order; the fused kernels' gates are the plain version's
 expressions, rounded alike) and within rtol 1e-5 on random floats (sums in
 another order); card and CPU pipelines agree on every discrete per-frame
-output and within atol 1e-4 on the motions.
+output and within atol 1e-4 on the motions.  The problem count 46 is a
+16-frame window's (16 stereo and 30 temporal problems,
+``pipeline/batched.py``), the largest the port's paths stack.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from libviso_torch.config import PipelineConfig
+from libviso_torch.config import Calib, PipelineConfig
 from libviso_torch.geometry.mvg import F_from_P_host
 from libviso_torch.ops import cuda_matching as cm
 from libviso_torch.ops import fused_matching as fm
+from libviso_torch.pipeline.batched import build_batched_odometry
 from libviso_torch.pipeline.multistream import run_multistream
 from libviso_torch.pipeline.stereo import run_stereo_sequence
+from libviso_torch.solvers.ransac import frame_generator, sample_gumbel
 from libviso_torch.synthetic import generate_sequence, kitti_projections
 
 pytestmark = pytest.mark.cuda
@@ -55,6 +59,7 @@ def _pair(shape1, shape2, integer, seed=0):
     (((3, 1280, 128), (3, 1280, 128)), True),
     (((3, 1280, 128), (3, 1280, 128)), False),
     (((12, 1280, 128), (12, 1280, 128)), True),
+    (((46, 1280, 128), (46, 1280, 128)), True),   # a 16-frame window's
     (((1, 1280, 128), (1, 1280, 128)), True),
     (((2, 1000, 128), (2, 777, 128)), True),
     (((2, 1000, 128), (2, 777, 128)), False),
@@ -151,6 +156,7 @@ FUSED = [("fused_gated_two_min", fm.fused_gated_two_min, None),
 @pytest.mark.parametrize("kernel", FUSED, ids=lambda k: k[0])
 @pytest.mark.parametrize("shape", [(3, 1280, 1280, 128),
                                    (12, 1280, 1280, 128),
+                                   (46, 1280, 1280, 128),
                                    (1, 1280, 1280, 128),
                                    (2, 1000, 777, 128), (3, 1280, 1280, 124),
                                    (1, 5, 3, 4)])
@@ -221,6 +227,7 @@ def test_fused_gated_raises_on_a_refused_launch():
 
 @pytest.mark.parametrize("shape", [(3, 1280, 1280, 128),
                                    (12, 1280, 1280, 128),
+                                   (46, 1280, 1280, 128),
                                    (1, 1280, 1280, 128),
                                    (2, 1000, 777, 128), (3, 1280, 1280, 124),
                                    (1, 5, 3, 4)])
@@ -361,3 +368,63 @@ def test_run_multistream_launches_once_per_timestep(backend, kernel):
         assert [{k: x[k] for k in keys} for x in got.stats] == \
             [{k: x[k] for k in keys} for x in solo.stats]
         np.testing.assert_allclose(got.motions, solo.motions, atol=5e-6)
+
+
+@pytest.mark.parametrize("backend,kernel", [
+    ("dense", "l1_distance_matrix"), ("fused", "fused_gated_two_min"),
+    ("sweep", "fused_sweep_two_min")])
+def test_batched_window_launches_twice_and_equals_streaming(backend, kernel):
+    """A 16-frame window is two matcher calls (16 stereo and 30 temporal
+    problems, 46 in all), so two launches of the backend's kernel, and on
+    the same draws frames 1..15 have the streaming run's discrete stats."""
+    require_cuda()
+    T = 16
+    seq = generate_sequence(num_frames=T, num_points=500, seed=2, width=416,
+                            height=160)
+    cfg = PipelineConfig().with_metric("l1")
+    shape = (cfg.ransac.num_hypotheses, cfg.detector.num_slots)
+    draws = torch.stack([sample_gumbel(shape, frame_generator(0, t))
+                         for t in range(1, T)])
+    ims = [torch.tensor(np.stack([np.asarray(f[v]) for f in seq.frames]),
+                        device="cuda") for v in (0, 1)]
+    fn = build_batched_odometry(
+        Calib.from_projections(seq.P1, seq.P2),
+        torch.as_tensor(F_from_P_host(seq.P1, seq.P2), dtype=torch.float32,
+                        device="cuda"), cfg, backend=backend)
+
+    def count():
+        return {"l1_distance_matrix": cm.launches, **fm.launches}[kernel]
+
+    before = count()
+    out = fn(*ims, draws.cuda())
+    torch.cuda.synchronize()
+    assert count() == before + 2
+    stream = run_stereo_sequence(seq.frames, seq.P1, seq.P2, cfg, seed=0,
+                                 device="cuda", backend=backend)
+    for t in range(1, T):
+        st = stream.stats[t]
+        assert (bool(out.ok[t]), int(out.num_circle[t]),
+                int(out.num_inliers[t]), int(out.num_lr[t])) == \
+            (st["ok"], st["num_circle"], st["num_inliers"], st["num_lr"]), t
+    np.testing.assert_allclose(out.motions.cpu().numpy()[1:],
+                               stream.motions[1:], atol=1e-4)
+
+
+def test_chunked_and_resumed_runs_equal_the_plain_run_on_the_card(tmp_path):
+    require_cuda()
+    from libviso_torch.utils.checkpoint import CheckpointManager
+
+    seq = generate_sequence(num_frames=7, num_points=500, seed=2, width=416,
+                            height=160)
+    cfg = PipelineConfig().with_metric("l1")
+    run = lambda frames, **kw: run_stereo_sequence(  # noqa: E731
+        frames, seq.P1, seq.P2, cfg, seed=0, device="cuda",
+        backend="sweep", **kw)
+    want = run(seq.frames)
+    mgr = CheckpointManager(str(tmp_path), every=3)
+    run(seq.frames[:4], chunk=3, checkpoint=mgr)
+    for got in (run(seq.frames, chunk=3),
+                run(seq.frames, chunk=3, checkpoint=mgr)):
+        assert got.stats == want.stats
+        np.testing.assert_array_equal(got.motions, want.motions)
+        np.testing.assert_array_equal(got.poses, want.poses)

@@ -100,7 +100,12 @@ def test_topk_ties_go_to_lowest_index():
 @pytest.mark.parametrize("option", [
     dict(sharpen_sigma=2.0), dict(pyramid_levels=2), dict(subpixel=True),
     dict(nms_radius=2)])
-def test_options_not_ported_raise(option):
+def test_options_not_ported_raise(option, frames):
+    """No detector option is left unported: each of the four that used to
+    raise NotImplementedError now runs and fills the default slot tensors
+    (their parity with JAX is tests/test_torch_detector_options.py's)."""
     cfg = from_jax_config(DetectorConfig(**option))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfeat.detect_and_describe(torch.zeros(64, 64), cfg)
+    kp, d = tfeat.detect_and_describe(to_torch(frames[0]), cfg)
+    assert kp.xy.shape == (1280, 2) and d.shape == (1280, 128)
+    assert int(kp.valid.sum()) > 300 and not d[~kp.valid].any()
+    assert torch.isfinite(kp.xy).all()

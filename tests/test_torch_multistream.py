@@ -132,11 +132,13 @@ def test_stack_states_round_trip():
 
 
 def test_options_not_ported_raise(seqs):
+    """What serving still refuses: the sharded step (item 15) and the
+    matcher variants (item 14)."""
     a = seqs[0]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        tms.run_multistream([a.frames], [a.P1], [a.P2], CFG, device="cpu",
-                            checkpoint=object())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        tms.build_multistream_chunk(CFG, 2)
     with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
         tms.jit_multistream_sharded(None, CFG)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
+        tms.run_multistream([a.frames], [a.P1], [a.P2],
+                            CFG.with_metric("l2q8"), device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
+        tms.build_multistream_chunk(CFG.with_metric("l2q8"), 2)

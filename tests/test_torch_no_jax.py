@@ -30,7 +30,9 @@ def _imported_modules(path):
 def test_package_has_sources():
     names = {p.relative_to(PKG).as_posix() for p in SOURCES}
     assert {"cli.py", "pipeline/stereo.py", "pipeline/multistream.py",
-            "ops/cuda_matching.py", "ops/fused_matching.py"} <= names
+            "pipeline/batched.py", "ops/cuda_matching.py",
+            "ops/fused_matching.py", "ops/pyramid.py", "synthetic_world.py",
+            "utils/checkpoint.py", "utils/debug_viz.py"} <= names
 
 
 @pytest.mark.parametrize("path", SOURCES,

@@ -8,6 +8,7 @@ less than 1e-3 m.  The port's CLI drivers run on the CPU; the card's run
 is held against the CPU's by tests/test_torch_cuda.py.
 """
 
+import dataclasses
 import json
 import os
 
@@ -111,17 +112,25 @@ def test_cuda_device_without_a_card_raises(seq, monkeypatch):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(chunk=2), dict(dbg_dir="dbg"),
-    dict(cfg=from_jax_config(PipelineConfig(keep_features_on_failure=True))),
+    dict(cfg=from_jax_config(PipelineConfig().with_metric("l2q8"))),
+    dict(cfg=from_jax_config(dataclasses.replace(
+        PipelineConfig(), stereo_match=dataclasses.replace(
+            PipelineConfig().stereo_match, banded=True)))),
+    dict(cfg=from_jax_config(PipelineConfig().with_metric("l2q8")),
+         chunk=2),
 ])
 def test_options_not_ported_raise(seq, kwargs):
+    """What run_stereo_sequence still refuses: the matcher variants."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tstereo.run_stereo_sequence(seq.frames[:2], seq.P1, seq.P2,
                                     device="cpu", **kwargs)
 
 
-@pytest.mark.parametrize("argv", [["--world"], ["--subpixel"],
-                                  ["--chunk", "4"], ["--metric", "l2q8"]])
-def test_cli_flags_not_ported_raise(argv):
+@pytest.mark.parametrize("argv", [["--world-loop"], ["--metric", "l2q8"],
+                                  ["--ba-window", "4"], ["--loop-closure"]])
+def test_cli_flags_not_ported_raise(argv, tmp_path):
+    cmd = (["synth", "--frames", "2"] if argv[0] in ("--world-loop",
+                                                      "--metric")
+           else ["kitti", "sha", "77", "--kitti-home", str(tmp_path)])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(["synth", "--device", "cpu", "--frames", "2", *argv])
+        cli.main([*cmd, "--device", "cpu", *argv])

@@ -41,7 +41,7 @@ def test_cli_serve_on_cpu(kitti_home, capsys, pool):
 @pytest.mark.parametrize("argv,error", [
     (["--metric", "l2", "--backend", "fused"], ValueError),
     (["--backend", "sweep"], ValueError),        # the default metric is l2
-    (["--checkpoint-every", "2"], NotImplementedError),
+    (["--metric", "l2q8"], NotImplementedError),  # ROADMAP item 14
 ])
 def test_cli_serve_rejects(kitti_home, argv, error):
     with pytest.raises(error):
@@ -49,8 +49,48 @@ def test_cli_serve_rejects(kitti_home, argv, error):
                   "--device", "cpu", *argv])
 
 
-@pytest.mark.parametrize("argv", [["77"], ["77,78", "--chunk", "2"]])
+@pytest.mark.parametrize("argv", [
+    ["77"], ["77,78", "--chunk", "2"],
+    ["77,78", "--pool", "2", "--checkpoint-every", "2"]])
 def test_cli_serve_exits_on_bad_requests(kitti_home, argv):
     with pytest.raises(SystemExit):
         cli.main(["serve", "sha", *argv, "--kitti-home", str(kitti_home),
                   "--device", "cpu"])
+
+
+def test_cli_serve_checkpoint_resumes(kitti_home, capsys):
+    """A serving run cut by --end and resumed with the full range equals
+    the uninterrupted one; the second run computes only the new frames."""
+    base = ["serve", "--kitti-home", str(kitti_home), "--device", "cpu",
+            "--metric", "l1", "--backend", "sweep"]
+
+    def run(sha, *extra):
+        cli.main([base[0], sha, "77,78", *base[1:], *extra])
+        return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+
+    whole = run("whole", "--end", "3")
+    ck = kitti_home / "results" / "_serve" / "cut" / "checkpoints"
+    # the scope names the range, so the cut run is one with fewer frames on
+    # disk, not another --end: hide the last two frames while it runs
+    hidden = []
+    for seq in ("77", "78"):
+        for cam in ("image_0", "image_1"):
+            for i in (2, 3, 4, 5):
+                f = kitti_home / "sequences" / seq / cam / f"{i:06d}.png"
+                f.rename(f.with_suffix(".hid"))
+                hidden.append(f)
+    try:
+        cut = run("cut", "--end", "3", "--checkpoint-every", "2")
+    finally:
+        for f in hidden:
+            f.with_suffix(".hid").rename(f)
+    assert [s["frames"] for s in cut["sequences"]] == [2, 2]
+    assert sorted(p.name for p in ck.iterdir()) == ["ckpt_00000002.npz"]
+    resumed = run("cut", "--end", "3", "--checkpoint-every", "2")
+    for a, b in zip(resumed["sequences"], whole["sequences"]):
+        assert a["frames"] == b["frames"] == 4 and a["solved"] == b["solved"]
+        assert a["health"] == b["health"]
+        np.testing.assert_array_equal(np.loadtxt(a["poses"]),
+                                      np.loadtxt(b["poses"]))
+    with pytest.raises(ValueError, match="fingerprint"):
+        run("cut", "--end", "3", "--checkpoint-every", "2", "--seed", "4")

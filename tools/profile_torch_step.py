@@ -26,7 +26,8 @@ of that generator (seeds 0-3, lengths 20, 20, 16, 12; metric l1):
      (dense, fused, sweep), after a warm-up and in alternating order, over
      all frames and over timesteps 2-19;
   2. per-stage host times of the serving step (upload + front-end, match,
-     correspondences, the per-stream solves), a sync after each stage;
+     correspondences, the solve: one call for all live streams, counted),
+     a sync after each stage;
   3. a torch.profiler trace of timesteps 10-14 under each backend (its
      "per frame" counts are then per timestep).
 
@@ -257,8 +258,20 @@ def serve_stage_times(seqs, backend, device):
     """Mean per-stage host times [ms] of the serving step over timesteps
     2..T-1, a sync after each stage (the stages of build_multistream_step,
     read through its on_stage hook; "front_end" includes the draws and the
-    upload before it)."""
+    upload before it), with the calls of the solve per timestep, counted,
+    and the live streams each such call solves."""
     marks = []
+    calls = []
+    build_solve = multistream.build_solve
+
+    def counting_build_solve(calib, cfg):
+        solve = build_solve(calib, cfg)
+
+        def counted(si, gumbel):
+            calls.append(len(gumbel))   # the batch's rows: live streams
+            return solve(si, gumbel)
+
+        return counted
 
     def on_stage(stage):
         sync(device)
@@ -266,11 +279,18 @@ def serve_stage_times(seqs, backend, device):
 
     sync(device)
     marks.append(time.perf_counter())
-    serve_run(seqs, backend, device, on_stage=on_stage)
+    multistream.build_solve = counting_build_solve
+    try:
+        serve_run(seqs, backend, device, on_stage=on_stage)
+    finally:
+        multistream.build_solve = build_solve
     rows = np.diff(np.asarray(marks)).reshape(-1, 4)[2:] * 1e3
     mean = list(rows.mean(axis=0)) + [rows.sum(axis=1).mean()]
-    return dict(zip(("front_end_ms", "match_ms", "correspondences_ms",
-                     "solves_ms", "step_ms"), (float(x) for x in mean)))
+    steps = len(marks) // 4
+    return {**dict(zip(("front_end_ms", "match_ms", "correspondences_ms",
+                        "solves_ms", "step_ms"), (float(x) for x in mean))),
+            "solve_calls_per_step": len(calls) / steps,
+            "live_streams_per_solve": float(np.mean(calls[2:]))}
 
 
 def serve_main(args, device, result):
