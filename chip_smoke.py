@@ -47,7 +47,19 @@ Phases, each of which exits non-zero on failure:
      window); 4 frames with pyramid_levels=2, subpixel, sharpen_auto and
      nms_radius=2 give the same discrete stats on the card as on the CPU;
      keep_features_on_failure holds a blanked frame's predecessor; and
-     `cli synth --world --chunk 4 --metric l1 --backend sweep` runs.
+     `cli synth --world --chunk 4 --metric l1 --backend sweep` runs;
+ 10. mono, at full width (PipelineConfig.mono(): 1536 slots, descriptors
+     of 361 values padded to 384, one problem a call, radius 10): the L1,
+     fused and sweep kernels equal their plain versions bitwise at
+     (1, 1536, 384) on integer descriptors and on the temporal match and
+     the F-gated re-match of a real frame, and are timed there beside
+     their plain versions, their bounds and torch.cdist(p=1);
+     run_mono_sequence on the 20 left frames of the phase-4 sequence
+     solves at least 18 of 19 frames under metric l1 through each
+     backend's kernels (two matcher calls a frame) within the Sim(3) ATE
+     bound of the JAX package's run, and the three backends give the same
+     discrete per-frame stats on the same draws; metric l2 runs too; and
+     `cli mono --device cuda` runs on a small image folder.
 
 The line before the last is the kernel table as JSON: per kernel its
 launches on the main path, its time beside its bound (the larger of the
@@ -55,7 +67,9 @@ bytes it must move over 3.35 TB/s and its FP32 instructions over the
 card's issue rate, 132 SMs x 128 lanes x 1.98 GHz; 67 TFLOP/s counts an
 FMA as two) and the share of the bound it reaches, the plain version's
 time and the library call's, at the main shape (3, 1280, 128) and the
-serving shape (12, 1280, 128).  The sweep's entry is its whole route
+serving shape (12, 1280, 128), and at the mono shape (1, 1536, 384) with
+its launches in the 20-frame mono run (`mono_launches`).  The sweep's
+entry is its whole route
 (`ms`: order kernel and sweep kernel, `order_ms` and `sweep_ms` each
 alone, `fused_ms` kernel #2 in the same turns, `route_launches` by
 torch.profiler), bounded by the (query, target) pairs that pass the
@@ -97,6 +111,26 @@ MAIN_SHAPE = (3, 1280, 128)   # a frame's three match problems
 SERVE_SHAPE = (12, 1280, 128)  # a 4-stream serving step's twelve
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 FP32_INSTR_PER_S = 132 * 128 * 1.98e9   # FP32 lanes x boost clock
+# The JAX package's Sim(3)-aligned ATE [m] of the mono path on the left
+# frames of the phase-4 sequence (PipelineConfig.mono() under each metric,
+# seed 0, K = P1[:, :3]; 19 of 19 frames solved under both), computed on
+# the CPU with:
+#   python -c "import jax; jax.config.update('jax_platforms', 'cpu')
+#   from libviso_tpu.config import PipelineConfig
+#   from libviso_tpu.pipeline.mono import run_mono_sequence
+#   from libviso_tpu.synthetic import generate_sequence
+#   from libviso_tpu.utils.metrics import ate_rmse
+#   s = generate_sequence(num_frames=20, num_points=900, seed=0, width=1241,
+#       height=376, f=718.856, base=0.5371657, speed=0.8)
+#   for m in ('l1', 'l2'):
+#       r = run_mono_sequence([f[0] for f in s.frames], s.P1[:, :3],
+#           PipelineConfig.mono().with_metric(m), seed=0)
+#       print(m, ate_rmse(r.poses, s.gt_poses, align='sim3'))"
+JAX_MONO_ATE_M = {"l1": 0.0852750317587583, "l2": 0.10186595192174926}
+MONO_ATE_BOUND = {m: max(1.5 * a, a + 0.02) for m, a in JAX_MONO_ATE_M.items()}
+MONO_SHAPE = (1, 1536, 384)   # one mono match problem
+MONO_STATS = ("frame", "ok", "num_matches", "num_inliers", "scale_support",
+              "span")
 KEYS = ("ok", "num_lr", "num_circle", "num_inliers")
 STATS = ("frame", "ok", "num_kp1", "num_lr", "num_circle", "num_inliers")
 SERVE_LENGTHS = (20, 20, 16, 12)   # streams of seeds 0..3
@@ -873,6 +907,258 @@ def stereo_path_phase(seq, seqs, whole, serve_fps):
     return window_launches
 
 
+def _mono_problems(seq):
+    """The two match problems of frame 1 of the mono path, on the frames
+    rounded to uint8 (integer descriptors), each a (1, 1536, ...) batch:
+    the temporal match (radius 10, no Sampson gate) and the re-match under
+    the F that frame 1's first essential matrix induces (radius 10,
+    Sampson gate 1.0).  Returns {"temporal": problem, "rematch": problem}
+    in match_problem_batch's argument order."""
+    import torch
+
+    from libviso_torch.config import PipelineConfig
+    from libviso_torch.geometry.essential import (
+        normalize_points,
+        ransac_essential,
+    )
+    from libviso_torch.config import MonoConfig
+    from libviso_torch.ops.features import detect_and_describe
+    from libviso_torch.ops.matching import match_descriptors
+    from libviso_torch.pipeline.mono import mono_draws, mono_hypotheses
+
+    cfg = PipelineConfig.mono().with_metric("l1")
+    K = np.asarray(seq.P1[:, :3], np.float64)
+    feats = []
+    for t in (0, 1):
+        im = np.clip(np.round(np.asarray(seq.frames[t][0])), 0, 255)
+        feats.append(detect_and_describe(
+            torch.tensor(im.astype(np.uint8), device="cuda"), cfg.detector))
+    (kp0, d0), (kp1, d1) = feats
+    m = match_descriptors(kp1, d1, kp0, d0, cfg.temporal_match)
+    Kt = torch.tensor(K, dtype=torch.float32, device="cuda")
+    n = cfg.detector.num_slots
+    mono = MonoConfig()
+    h1, h2 = mono_hypotheses(mono)
+    g1, _ = mono_draws(0, 1, (h1, n), (h2, n))     # frame 1's est1 draws
+    est1 = ransac_essential(
+        normalize_points(kp1.xy, Kt),
+        normalize_points(kp0.xy[torch.clamp(m.idx, 0, n - 1)], Kt),
+        valid=m.valid, gumbel=g1.cuda(), num_hypotheses=g1.shape[0],
+        sampson_thresh=mono.sampson_thresh, method=mono.method,
+        scoring=mono.scoring, soft_refit=mono.soft_refit)
+    Kinv = torch.tensor(np.linalg.inv(K), dtype=torch.float32, device="cuda")
+    F = (Kinv.T @ est1.E) @ Kinv
+    base = [kp1.xy[None], kp1.valid[None], d1[None].contiguous(),
+            kp0.xy[None], kp0.valid[None], d0[None].contiguous(),
+            F[None].contiguous()]
+    return {name: base + [torch.tensor([epi], device="cuda")]
+            for name, epi in (("temporal", False), ("rematch", True))}
+
+
+def mono_kernel_phase(seq):
+    """Kernels #1-#3 at the mono shape against their plain versions, and
+    their times there; returns {kernel: {"max_abs_err", "ms", ...}}."""
+    import torch
+
+    from libviso_torch.ops import cuda_matching as cm
+    from libviso_torch.ops import fused_matching as fm
+
+    radius, thresh = 10.0, 1.0
+    g = torch.Generator(device="cuda").manual_seed(6)
+    a, b = (torch.randint(-1020, 1021, MONO_SHAPE, generator=g,
+                          device="cuda").float() for _ in range(2))
+    check(torch.equal(cm.l1_distance_matrix(a, b),
+                      cm.l1_distance_matrix_plain(a, b)),
+          f"l1_distance_matrix {MONO_SHAPE}: kernel != plain bitwise on "
+          f"random integer descriptors")
+    problems = _mono_problems(seq)
+    for name, args in problems.items():
+        q_d, t_d = args[2], args[5]
+        check(tuple(q_d.shape) == MONO_SHAPE,
+              f"mono problem shape {tuple(q_d.shape)} != {MONO_SHAPE}")
+        got = fm.fused_gated_two_min(*args, thresh, radius)
+        ref = fm.fused_gated_two_min_plain(*args, thresh, radius)
+        sgot = fm.sorted_fused_two_min(*args, thresh, radius)
+        sref = fm.sorted_fused_two_min(*args, thresh, radius,
+                                       sweep=fm.fused_sweep_two_min_plain)
+        sides = (args[0], args[1], args[3], args[4])
+        check(all(torch.equal(x, y) for x, y in zip(got, ref)),
+              f"fused_gated_two_min {name} {MONO_SHAPE}: != plain bitwise")
+        check(all(torch.equal(x, y) for x, y in zip(sgot, sref)),
+              f"sorted_fused_two_min {name} {MONO_SHAPE}: != plain bitwise")
+        check(all(torch.equal(x, y) for x, y in zip(
+            fm.sweep_order(*sides), fm.sweep_order_plain(*sides))),
+              f"sweep_order {name} {MONO_SHAPE}: != plain bitwise")
+        check(torch.equal(cm.l1_distance_matrix(q_d, t_d),
+                          cm.l1_distance_matrix_plain(q_d, t_d)),
+              f"l1_distance_matrix {name} {MONO_SHAPE}: != plain bitwise")
+        rows = int(torch.isfinite(ref[0]).sum())
+        print(f"[mono-kernel] {name} problem of frame 1 {MONO_SHAPE}: "
+              f"gated, sweep route, order kernel and l1_distance_matrix == "
+              f"plain bitwise on integer descriptors; {rows} of "
+              f"{int(args[1].sum())} valid query rows have a candidate")
+
+    # times in turns on the re-match problem (the Sampson-gated one)
+    args = problems["rematch"]
+    q_d, t_d = args[2], args[5]
+    sides = (args[0], args[1], args[3], args[4])
+    order = fm.sweep_order(*sides)
+    fns = {
+        "l1 plain": lambda: cm.l1_distance_matrix_plain(q_d, t_d),
+        "l1": lambda: cm.l1_distance_matrix(q_d, t_d),
+        "cdist": lambda: torch.cdist(q_d, t_d, p=1),
+        "gated plain": lambda: fm.fused_gated_two_min_plain(*args, thresh,
+                                                            radius),
+        "gated": lambda: fm.fused_gated_two_min(*args, thresh, radius),
+        "order plain": lambda: fm.sweep_order_plain(*sides),
+        "order": lambda: fm.sweep_order(*sides),
+        "sweep": lambda: fm.swept_two_min(*args, order, thresh, radius),
+        "sweep route": lambda: fm.sorted_fused_two_min(*args, thresh,
+                                                       radius),
+        "sweep route plain": lambda: fm.sorted_fused_two_min(
+            *args, thresh, radius, sweep=fm.fused_sweep_two_min_plain),
+    }
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    ms = {k: [] for k in fns}
+    for k in list(fns) + list(fns)[::-1]:
+        ms[k].append(_time_ms(fns[k], reps=10))
+    t = {k: sum(v) / len(v) for k, v in ms.items()}
+    B, N, D = MONO_SHAPE
+    pairs = int(fm.gate(*sides[:2], *sides[2:], args[6],
+                        torch.zeros_like(args[7]), thresh, radius).sum())
+    l1_bound = bound_ms(2 * B * N * N * D, 4 * B * (2 * N * D + N * N))
+    n_boxes = sum(-(-N // k) for k in fm.SWEEP_TILING)
+    rows = {
+        "l1_distance_matrix": {
+            "ms": t["l1"], "plain_ms": t["l1 plain"],
+            "library_ms": t["cdist"], "bound": l1_bound},
+        "fused_gated_two_min": {
+            "ms": t["gated"], "plain_ms": t["gated plain"],
+            "library_ms": None,
+            "bound": two_min_bound(B, N, N, D, B * N * N)},
+        "sweep_order": {
+            "ms": t["order"], "plain_ms": t["order plain"],
+            "library_ms": None,
+            "bound": bound_ms(2 * B * N * math.log2(N),
+                              B * (2 * N * 9 + 2 * N * 4 + 16 * n_boxes))},
+        "fused_sweep_two_min": {
+            "ms": t["sweep route"], "order_ms": t["order"],
+            "sweep_ms": t["sweep"], "fused_ms": t["gated"],
+            "plain_ms": t["sweep route plain"], "library_ms": None,
+            "pairs": pairs, "bound": two_min_bound(B, N, N, D, pairs)},
+    }
+    for row in rows.values():
+        row["bound_ms"], row["bound_by"] = row.pop("bound")
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+    print(f"[mono-kernel] {MONO_SHAPE} re-match problem, ms per call (two "
+          f"turns each): " + ", ".join(
+              f"{k} {t[k]:.4f} ({v[0]:.4f}, {v[1]:.4f})"
+              for k, v in ms.items())
+          + f"; {pairs} pairs pass the position and validity gates; bounds "
+          + ", ".join(f"{k} {r['bound_ms']:.4f} ms ({r['bound_by']}, share "
+                      f"{r['share_of_bound']:.3f})" for k, r in rows.items()))
+    return rows
+
+
+def mono_phase(seq):
+    """run_mono_sequence at full width under each backend (metric l1) and
+    under l2; returns each kernel's launches in its backend's run (the
+    counts set to 0 just before the run and read just after)."""
+    import torch
+
+    from libviso_torch.config import PipelineConfig
+    from libviso_torch.pipeline.mono import run_mono_sequence
+    from libviso_torch.utils.metrics import ate_rmse
+
+    K = np.asarray(seq.P1[:, :3], np.float64)
+    frames = [f[0] for f in seq.frames]
+    T = len(frames)
+    stats, launches = {}, {}
+    for metric, backend in (("l1", "dense"), ("l1", "fused"),
+                            ("l1", "sweep"), ("l2", "dense")):
+        ends = []
+
+        def on_frame(t, out):
+            torch.cuda.synchronize()
+            ends.append(time.perf_counter())
+
+        reset_launches()
+        res = run_mono_sequence(frames, K,
+                                PipelineConfig.mono().with_metric(metric),
+                                seed=0, device="cuda", backend=backend,
+                                on_frame=on_frame)
+        counts = read_launches()
+        solved = int(res.frame_ok.sum())
+        ate = ate_rmse(res.poses, seq.gt_poses, align="sim3")
+        fps = (len(ends) - 2) / (ends[-1] - ends[1])
+        check(solved >= T - 2 and ate <= MONO_ATE_BOUND[metric],
+              f"mono {metric} {backend}: solved {solved}/{T - 1}, Sim(3) "
+              f"ATE {ate} m (bound {MONO_ATE_BOUND[metric]} m, JAX "
+              f"{JAX_MONO_ATE_M[metric]} m)")
+        note = ""
+        if metric == "l1":
+            for name in BACKEND_KERNELS[backend]:
+                launches[name] = counts[name]
+                check(counts[name] == 2 * T, f"mono {backend}: {name} "
+                      f"launched {counts[name]} times in {T} frames")
+            stats[backend] = [{k: x[k] for k in MONO_STATS}
+                              for x in res.stats]
+            note = (f"; {' and '.join(BACKEND_KERNELS[backend])} "
+                    f"{2 * T} launches each in {T} frames")
+        print(f"[mono] metric {metric}, {backend}: solved {solved}/{T - 1}, "
+              f"Sim(3) ATE {ate} m (JAX {JAX_MONO_ATE_M[metric]} m, bound "
+              f"{MONO_ATE_BOUND[metric]:.4f} m), {fps:.2f} frames/s over "
+              f"frames 2-{T - 1}; inliers "
+              f"{[x['num_inliers'] for x in res.stats]}{note}")
+    for backend in ("fused", "sweep"):
+        check(stats[backend] == stats["dense"],
+              f"mono: {backend} and dense differ on a discrete stat")
+    print("[mono] fused == sweep == dense on every discrete per-frame stat "
+          "(ok, matches, inliers, scale support, span) on the same draws")
+    return launches
+
+
+def mono_cli_phase():
+    """`cli mono --device cuda` on a folder of 6 generated PNG frames,
+    where PIL imports."""
+    try:
+        from PIL import Image
+    except ImportError:
+        print("[mono-cli] PIL does not import here: cli mono not run")
+        return
+    import shutil
+
+    from libviso_torch.synthetic import generate_sequence
+
+    home = os.path.join(ROOT, "build", "chip_smoke_mono")
+    shutil.rmtree(home, ignore_errors=True)
+    os.makedirs(home)
+    seq = generate_sequence(num_frames=6, num_points=500, seed=7, width=416,
+                            height=160)
+    for i, pair in enumerate(seq.frames):
+        Image.fromarray(np.asarray(pair[0]).astype(np.uint8)).save(
+            os.path.join(home, f"{i:06d}.png"))
+    np.savetxt(os.path.join(home, "K.txt"), seq.P1[:, :3])
+    out_path = os.path.join(home, "poses.txt")
+    cmd = [sys.executable, "-m", "libviso_torch.cli", "mono", "--image-mask",
+           os.path.join(home, "%06d.png"), "--calib",
+           os.path.join(home, "K.txt"), "--out", out_path, "--metric", "l1",
+           "--backend", "fused"]
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=600)
+    check(proc.returncode == 0,
+          f"{' '.join(cmd[1:])} exited {proc.returncode}:\n{proc.stderr}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    rows = np.loadtxt(out_path)
+    check(out["solved"] == 5 and rows.shape == (6, 12)
+          and np.isfinite(rows).all(), f"cli mono: {out}")
+    shutil.rmtree(home)
+    print(f"[mono-cli] cli mono --metric l1 --backend fused on 6 frames: "
+          f"{json.dumps(out)}")
+
+
 def kernels_line(launches, l1_err, l1_times, serve_launches, fused_err,
                  fused_times, counts):
     """The kernel table: per kernel its main-path launches and, at the
@@ -960,10 +1246,17 @@ def main():
     serve_cli_phase()
     window_launches = stereo_path_phase(seq, seqs, whole, serve_fps)
 
+    mono_rows = mono_kernel_phase(seq)
+    mono_launches = mono_phase(seq)
+    mono_cli_phase()
+
     line = kernels_line(launches, l1_err, l1_times, serve_launches,
                         fused_err, fused_times, counts)
-    for k in line["kernels"]:   # two matcher calls a window
+    for k in line["kernels"]:
         k["window_launches"] = window_launches.get(k["name"])
+        k["mono_launches"] = mono_launches[k["name"]]
+        k["shapes"].append({"shape": list(MONO_SHAPE),
+                            **mono_rows[k["name"]]})
     print(f"[time] chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

@@ -1,13 +1,17 @@
-"""Command-line entry points of the PyTorch port (port of ``libviso_tpu/cli.py``,
-stereo subcommands).
+"""Command-line entry points of the PyTorch port (port of ``libviso_tpu/cli.py``).
 
   python -m libviso_torch.cli synth [--frames N] [--world] [--metric l1|l2]
-  python -m libviso_torch.cli kitti RESULT_SHA SEQ [BEGIN END]
+  python -m libviso_torch.cli kitti RESULT_SHA SEQ[,SEQ...] [BEGIN END]
       [--kitti-home DIR]        (default $KITTI_HOME)
       [--checkpoint-every N] [--save-debug]
+                                (several sequences: each in turn)
   python -m libviso_torch.cli serve RESULT_SHA SEQ,SEQ[,...] [--pool N]
       [--begin B] [--end E] [--checkpoint-every N]
                                 (several sequences, one step for all)
+  python -m libviso_torch.cli mono [--image-mask MASK] [--calib K.txt]
+      [--begin B] [--end E] [--out POSES] [--method 5pt|8pt] ...
+                                (default $CBT_HOME/img-%04d.jpg from frame 1
+                                 and $CBT_HOME/calib.txt)
   python -m libviso_torch.cli eval EST GT [--delta D] [--align A] [--plot P]
 
 The subcommands take ``--device`` (default ``cuda``); ``--device cuda`` on a
@@ -23,9 +27,11 @@ machine without a card raises: CPU runs ask for ``--device cpu``.
 pipeline flags (``--subpixel``, ``--pyramid``, ``--sharpen``,
 ``--sharpen-amount``, ``--sharpen-auto``, ``--nms``, ``--keep-on-failure``,
 ``--chunk``) and the health flags are the JAX CLI's, with its defaults.
-Flags of the JAX CLI that the port does not run yet (bundle adjustment,
-loop closure, the mono mode) are recognised and raise NotImplementedError
-naming the ROADMAP.md item that ports them.
+``mono`` takes the JAX CLI's flags and, like the others, ``--device``,
+``--metric`` and ``--backend``.  Flags of the JAX CLI that the port does
+not run yet (bundle adjustment, loop closure, the mono Sim(3) back-end)
+are recognised and raise NotImplementedError naming the ROADMAP.md item
+that ports them.
 """
 
 from __future__ import annotations
@@ -43,6 +49,11 @@ _NOT_PORTED_KITTI = (
 )
 _NOT_PORTED_SYNTH = (
     ("--world-loop", False, "Queue 1 item 11 (loop closure)"),
+)
+_NOT_PORTED_MONO = (
+    ("--sim3-loop", False, "Queue 1 item 13 (the mono Sim(3) back-end)"),
+    ("--kf-every", True, "Queue 1 item 13 (the mono Sim(3) back-end)"),
+    ("--loop-min-gap", True, "Queue 1 item 13 (the mono Sim(3) back-end)"),
 )
 
 
@@ -198,6 +209,15 @@ def _cmd_kitti(args):
     from libviso_torch.pipeline.stereo import run_stereo_sequence
 
     _reject_not_ported(args, _NOT_PORTED_KITTI)
+    if "," in args.seq:
+        # several sequences: each in turn, one JSON line each
+        import copy
+
+        for name in args.seq.split(","):
+            sub = copy.copy(args)
+            sub.seq = name
+            _cmd_kitti(sub)
+        return
     cfg = _config(args)
     kitti_home = args.kitti_home or os.environ.get("KITTI_HOME")
     if not kitti_home:
@@ -404,6 +424,74 @@ def _cmd_synth(args):
     }))
 
 
+def _cmd_mono(args):
+    """Monocular SfM driver: a 3x3 K (or a 3x4 P whose left 3x3 is K) from
+    a text file and a printf-style image mask.  With ``CBT_HOME`` set and
+    no flags, the calibration is ``$CBT_HOME/calib.txt`` and the images
+    ``$CBT_HOME/img-%04d.jpg`` from frame 1."""
+    import dataclasses
+
+    import numpy as np
+
+    from libviso_torch.config import MonoConfig, PipelineConfig
+    from libviso_torch.io.kitti import MonoImageStream, save_poses_kitti
+    from libviso_torch.pipeline.mono import run_mono_sequence
+
+    _reject_not_ported(args, _NOT_PORTED_MONO)
+    cbt_home = os.environ.get("CBT_HOME")
+    if args.image_mask is None:
+        if not cbt_home:
+            sys.exit("either --image-mask or CBT_HOME must be set")
+        args.image_mask = os.path.join(cbt_home, "img-%04d.jpg")
+        if args.begin == 0:
+            args.begin = 1
+    if args.calib is None:
+        if not cbt_home:
+            sys.exit("either --calib or CBT_HOME must be set")
+        args.calib = os.path.join(cbt_home, "calib.txt")
+
+    overrides = {"method": args.method}
+    if args.sampson_thresh is not None:
+        overrides["sampson_thresh"] = args.sampson_thresh
+    if args.min_good is not None:
+        overrides["min_good"] = args.min_good
+    if args.rematch_ratio is not None:
+        overrides["rematch_ratio"] = args.rematch_ratio
+    if args.hypotheses is not None:
+        overrides["num_hypotheses"] = args.hypotheses
+    if args.no_scale:
+        overrides["scale_propagation"] = False
+    mono = dataclasses.replace(MonoConfig(), **overrides)
+
+    vals = np.loadtxt(args.calib, dtype=np.float64)
+    K = vals.reshape(3, 4)[:, :3] if vals.size == 12 else vals.reshape(3, 3)
+    cfg = PipelineConfig.mono()
+    if args.metric is not None:
+        cfg = cfg.with_metric(args.metric)
+    if args.keep_on_failure:
+        cfg = dataclasses.replace(cfg, keep_features_on_failure=True)
+    stream = MonoImageStream(args.image_mask, begin=args.begin, end=args.end)
+
+    t0 = time.perf_counter()
+    res = run_mono_sequence(stream, K, cfg, seed=args.seed,
+                            device=args.device, backend=args.backend,
+                            mono=mono)
+    dt = time.perf_counter() - t0
+    if args.out:
+        save_poses_kitti(args.out, res.poses)
+    n = len(res.poses)
+    print(json.dumps({
+        "frames": n, "device": args.device,
+        "solved": int(res.frame_ok.sum()),
+        "fps": n / dt if dt else None,
+        "poses": args.out,
+        "note": ("monocular poses are correct up to one global scale "
+                 "(relative scale propagated through shared landmarks)"
+                 if mono.scale_propagation else
+                 "monocular poses are scale-ambiguous (unit-norm steps)"),
+    }))
+
+
 def _cmd_eval(args):
     """Trajectory evaluation between two KITTI-format pose files."""
     import numpy as np
@@ -449,14 +537,17 @@ def main(argv=None):
 
     k = sub.add_parser("kitti", help="KITTI stereo odometry")
     k.add_argument("result_sha")
-    k.add_argument("seq")
+    k.add_argument("seq", help="sequence name, or several separated by "
+                                "commas, run in turn")
     k.add_argument("begin", nargs="?", type=int, default=0)
     k.add_argument("end", nargs="?", type=int, default=None)
     k.add_argument("--kitti-home")
     k.add_argument("--checkpoint-every", type=int, default=0, metavar="N",
                    help="snapshot the loop state every N frames under "
                         "results/.../checkpoints and resume from the latest "
-                        "matching checkpoint (0 = off)")
+                        "matching checkpoint (0 = off); the files are this "
+                        "package's own, not interchangeable with the JAX "
+                        "package's checkpoints")
     k.add_argument("--save-debug", action="store_true",
                    help="write per-frame debug artifacts under "
                         "results/.../dbg")
@@ -494,11 +585,48 @@ def main(argv=None):
     _add_health_flags(v)
     v.set_defaults(fn=_cmd_serve)
 
-    m = sub.add_parser("mono", help="not ported yet: ROADMAP.md Queue 1 "
-                                    "item 10 (mono)")
-    m.add_argument("rest", nargs=argparse.REMAINDER)
-    m.set_defaults(fn=lambda _: _not_ported("mono",
-                                            "Queue 1 item 10 (mono)"))
+    m = sub.add_parser("mono", help="monocular SfM (calib_sfm.cpp analog)")
+    m.add_argument("--image-mask", default=None,
+                   help="printf-style mask, e.g. img-%%04d.jpg (default: "
+                        "$CBT_HOME/img-%%04d.jpg)")
+    m.add_argument("--calib", default=None,
+                   help="3x3 K text file, or a 3x4 P whose left 3x3 is K "
+                        "(default: $CBT_HOME/calib.txt)")
+    m.add_argument("--begin", type=int, default=0)
+    m.add_argument("--end", type=int, default=None)
+    m.add_argument("--out", help="KITTI-format pose output path")
+    m.add_argument("--seed", type=int, default=0)
+    m.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; without a card this "
+                        "raises: CPU runs ask for --device cpu)")
+    m.add_argument("--metric", default=None, choices=["l1", "l2"],
+                   help="descriptor distance (default l2; l1 runs the "
+                        "hand-written CUDA kernels on the card)")
+    m.add_argument("--backend", default="dense",
+                   choices=["dense", "fused", "sweep"],
+                   help="matcher route, as for kitti; fused and sweep need "
+                        "--metric l1")
+    m.add_argument("--method", default="5pt", choices=["5pt", "8pt"],
+                   help="essential-matrix minimal solver")
+    m.add_argument("--sampson-thresh", type=float, default=None,
+                   help="RANSAC Sampson gate in normalized coordinates "
+                        "(default MonoConfig.sampson_thresh = 2e-5)")
+    m.add_argument("--min-good", type=int, default=None,
+                   help="cheirality gate: min points in front of both "
+                        "cameras (default 10)")
+    m.add_argument("--rematch-ratio", type=float, default=None,
+                   help="Lowe ratio for the epipolar re-match (default .9)")
+    m.add_argument("--hypotheses", type=int, default=None,
+                   help="RANSAC sample count (default: 64 for 5pt, 128 "
+                        "for 8pt)")
+    m.add_argument("--no-scale", action="store_true",
+                   help="disable relative-scale propagation (unit-norm "
+                        "steps)")
+    m.add_argument("--keep-on-failure", action="store_true",
+                   help="transient-dropout recovery: hold the last good "
+                        "frame's features across a failed solve")
+    _add_not_ported(m, _NOT_PORTED_MONO)
+    m.set_defaults(fn=_cmd_mono)
 
     e = sub.add_parser("eval", help="ATE/RPE + KITTI devkit-style errors "
                                     "between two pose files")
@@ -513,12 +641,6 @@ def main(argv=None):
 
     args = p.parse_args(argv)
     args.fn(args)
-
-
-def _not_ported(name, item):
-    raise NotImplementedError(
-        f"the {name} mode is not ported to libviso_torch yet: ROADMAP.md "
-        f"{item}")
 
 
 if __name__ == "__main__":

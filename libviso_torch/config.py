@@ -197,8 +197,11 @@ class RansacConfig:
 
 @dataclasses.dataclass(frozen=True)
 class MonoConfig:
-    """Monocular estimator thresholds (mirrored; the mono path is not
-    ported yet)."""
+    """Monocular estimator configuration (``pipeline/mono.py``): RANSAC
+    threshold and solver ('5pt' or '8pt', and the first pass's), the
+    hypothesis selection ('msac' or 'magsac') and refit weights, the pose
+    polish, and the relative-scale propagation with its estimator
+    ('bundle', 'regression', 'median' or 'pnp')."""
 
     sampson_thresh: float = 2e-5
     min_good: int = 10
@@ -215,6 +218,31 @@ class MonoConfig:
     scale_estimator: str = "bundle"
     pnp_iters: int = 10
     bundle_iters: int = 10
+
+    def __post_init__(self):
+        if self.method not in ("5pt", "8pt"):
+            raise ValueError(
+                f"method must be '5pt' or '8pt', got {self.method!r}")
+        if self.first_pass not in ("same", "8pt"):
+            raise ValueError(
+                f"first_pass must be 'same' or '8pt', got "
+                f"{self.first_pass!r}")
+        if self.scoring not in ("msac", "magsac"):
+            raise ValueError(
+                f"scoring must be 'msac' or 'magsac', got {self.scoring!r}")
+        if self.scale_estimator not in ("bundle", "regression", "median",
+                                        "pnp"):
+            raise ValueError(
+                "scale_estimator must be bundle|regression|median|pnp, "
+                f"got {self.scale_estimator!r}")
+
+    def resolved_hypotheses(self) -> int:
+        """RANSAC samples: ``num_hypotheses``, or when 0 the default of
+        the method (64 for '5pt', each sample scoring up to 22 models;
+        128 for '8pt')."""
+        if self.num_hypotheses > 0:
+            return self.num_hypotheses
+        return 64 if self.method == "5pt" else 128
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,8 +1,8 @@
 """KITTI odometry dataset I/O (port of ``libviso_tpu/io/kitti.py``).
 
-Calibration parsing, devkit pose files and a lazy stereo image stream
-whose decode (PIL, imported on first use) runs on a read-ahead thread so
-that host I/O overlaps device compute.
+Calibration parsing, devkit pose files and lazy stereo and mono image
+streams whose decode (PIL, imported on first use) runs on a read-ahead
+thread so that host I/O overlaps device compute.
 """
 
 from __future__ import annotations
@@ -107,29 +107,68 @@ class StereoImageStream:
             yield _read_gray(left), _read_gray(right)
 
     def __iter__(self):
-        if self.prefetch <= 0:
-            yield from self._frames()
-            return
-        q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
-        done = object()
-        failure = []
+        return _read_ahead(self._frames(), self.prefetch)
 
-        def worker():
-            try:
-                for item in self._frames():
-                    q.put(item)
-            except BaseException as e:  # noqa: BLE001 — re-raised below
-                failure.append(e)
-            finally:
-                q.put(done)
 
-        t = threading.Thread(target=worker, daemon=True)
-        t.start()
-        while True:
-            item = q.get()
-            if item is done:
-                t.join()
-                if failure:
-                    raise failure[0]
+class MonoImageStream:
+    """Single-camera image stream: a printf-style mask formatted with the
+    frame index, frames from ``begin`` until ``end`` (inclusive) or the
+    first missing file, decoded on a read-ahead thread."""
+
+    def __init__(self, mask: str, begin: int = 0,
+                 end: Optional[int] = None, prefetch: int = 4):
+        self.mask = mask
+        self.begin = begin
+        self.end = end
+        self.prefetch = prefetch
+
+    def skipped(self, n: int) -> "MonoImageStream":
+        """A copy whose iteration starts ``n`` frames later, without
+        decoding the skipped frames."""
+        return MonoImageStream(self.mask, begin=self.begin + n,
+                               end=self.end, prefetch=self.prefetch)
+
+    def _paths(self):
+        i = self.begin
+        while self.end is None or i <= self.end:
+            p = self.mask % i
+            if not os.path.exists(p):
                 return
-            yield item
+            yield p
+            i += 1
+
+    def __iter__(self) -> Iterator[np.ndarray]:
+        return _read_ahead((_read_gray(p) for p in self._paths()),
+                           self.prefetch)
+
+
+def _read_ahead(items, prefetch: int):
+    """Iterate ``items`` with up to ``prefetch`` of them made ahead on a
+    thread (none: in the caller's thread); a failure reaches the
+    consumer."""
+    if prefetch <= 0:
+        yield from items
+        return
+    q: "queue.Queue" = queue.Queue(maxsize=prefetch)
+    done = object()
+    failure = []
+
+    def worker():
+        try:
+            for item in items:
+                q.put(item)
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            failure.append(e)
+        finally:
+            q.put(done)
+
+    t = threading.Thread(target=worker, daemon=True)
+    t.start()
+    while True:
+        item = q.get()
+        if item is done:
+            t.join()
+            if failure:
+                raise failure[0]
+            return
+        yield item

@@ -288,13 +288,14 @@ def build_solve(calib: Calib, cfg: PipelineConfig, debug: bool = False):
     return solve
 
 
-def hold_state_on_failure(state: FrameState, new_state: FrameState, ok,
-                          has_history, max_age: int) -> FrameState:
+def hold_state_on_failure(state, new_state, ok, has_history, max_age: int):
     """Dropout recovery (``cfg.keep_features_on_failure``): where the
     solve failed, hold the previous state as the next frame's match target
     instead of the bad frame's, unless the held state is empty
     (``has_history`` False at start-up) or has been held ``max_age`` times
-    already (a scene that really changed must re-sync, not pin).
+    already (a scene that really changed must re-sync, not pin).  The
+    states are any (nested) NamedTuple of tensors with a ``fail_age``
+    field: the stereo FrameState or the mono MonoState.
 
     ``ok`` and ``has_history`` are bool tensors shaped like the states'
     leading stream axes, () for one stream and (S,) when serving.  A

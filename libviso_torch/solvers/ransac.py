@@ -22,7 +22,7 @@ from libviso_torch.config import Calib, RansacConfig
 from libviso_torch.geometry.procrustes import solve_rigid_motion_horn
 from libviso_torch.geometry.se3 import matrix_to_pose_vector
 from libviso_torch.geometry.triangulate import triangulate_rectified
-from libviso_torch.ops.topk import topk_iterative
+from libviso_torch.ops.topk import first_argmax, topk_iterative
 from libviso_torch.solvers.gauss_newton import (
     gauss_newton,
     reprojection_errors_sq,
@@ -132,9 +132,7 @@ def ransac_pose(X, observe, valid, calib: Calib,
     # the largest support, the lowest index among equal counts (as JAX's
     # argmax; torch.argmax does not promise which of several maxima)
     counts = inl.sum(-1)                                      # (..., H)
-    hyp = torch.arange(H, device=X.device)
-    best = torch.where(counts == counts.amax(-1, keepdim=True), hyp,
-                       H).amin(-1)                            # (...)
+    best = first_argmax(counts)                               # (...)
 
     pick = best[..., None, None]
     best_mask = torch.take_along_dim(inl, pick, dim=-2)[..., 0, :]

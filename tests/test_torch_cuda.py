@@ -1,7 +1,9 @@
 """Card-only tests of libviso_torch: the CUDA kernels (L1 distance, fused
 gated matcher, and the sweep's order and sweep kernels) against their
 plain versions, and the pipeline and multi-stream serving on the card
-against the CPU and the solo runs.
+against the CPU and the solo runs, and the mono path on the card: the
+5-point solver's batch invariance and the three matcher routes on the same
+draws.
 
 Every test is marked ``cuda`` and skips without a card.  The file imports
 no JAX, so it runs on a machine that has none; the suite's conftest.py
@@ -65,6 +67,8 @@ def _pair(shape1, shape2, integer, seed=0):
     (((2, 1000, 128), (2, 777, 128)), False),
     (((3, 1280, 124), (3, 1280, 124)), True),
     (((1, 5, 4), (1, 3, 4)), True),
+    (((1, 1536, 384), (1, 1536, 384)), True),     # a mono match problem
+    (((1, 1536, 384), (1, 1536, 384)), False),
 ])
 def test_kernel_matches_plain(shapes, integer):
     require_cuda()
@@ -159,7 +163,9 @@ FUSED = [("fused_gated_two_min", fm.fused_gated_two_min, None),
                                    (46, 1280, 1280, 128),
                                    (1, 1280, 1280, 128),
                                    (2, 1000, 777, 128), (3, 1280, 1280, 124),
-                                   (1, 5, 3, 4)])
+                                   (1, 5, 3, 4),
+                                   (1, 1536, 1536, 384),   # mono's
+                                   (2, 1536, 1536, 384)])
 def test_fused_kernels_match_plain_bitwise(kernel, shape):
     require_cuda()
     name, fn, plain_sweep = kernel
@@ -428,3 +434,80 @@ def test_chunked_and_resumed_runs_equal_the_plain_run_on_the_card(tmp_path):
         assert got.stats == want.stats
         np.testing.assert_array_equal(got.motions, want.motions)
         np.testing.assert_array_equal(got.poses, want.poses)
+
+
+def _mono_cfg():
+    """tests/test_mono.py's mono_config(), in the port's classes, under
+    metric l1."""
+    from libviso_torch.config import DetectorConfig, MatchConfig
+
+    return PipelineConfig(
+        detector=DetectorConfig(max_features=480, nbinx=8, nbiny=4,
+                                num_slots=512, descriptor_radius=5),
+        temporal_match=MatchConfig(radius=60.0, use_ratio=True, ratio=0.9),
+    ).with_metric("l1")
+
+
+def test_five_point_batch_invariant_on_card():
+    """A sample's candidates alone equal its row of a 64-sample batch bit
+    for bit (the SVD, the 10x10 solve and the 3x3 polish solves run a lone
+    sample as a batch of two; small products and sums are tree sums)."""
+    require_cuda()
+    from libviso_torch.geometry.five_point import five_point_E
+
+    rng = np.random.default_rng(0)
+    x1 = torch.tensor(rng.uniform(-0.5, 0.5, (64, 5, 2)), dtype=torch.float32,
+                      device="cuda")
+    x2 = x1 + torch.tensor(rng.normal(size=(64, 5, 2)) * 0.02,
+                           dtype=torch.float32, device="cuda")
+    E, v = five_point_E(x1, x2)
+    assert bool(v.any())
+    for h in (0, 31, 63):
+        Eh, vh = five_point_E(x1[h:h + 1], x2[h:h + 1])
+        assert torch.equal(Eh[0], E[h]) and torch.equal(vh[0], v[h]), h
+    E32, v32 = five_point_E(x1[:32], x2[:32])
+    assert torch.equal(E32, E[:32]) and torch.equal(v32, v[:32])
+
+
+def test_mono_backends_agree_and_launch_twice_a_frame():
+    """run_mono_sequence under metric l1 with each matcher backend on the
+    same draws: the same discrete per-frame stats, each backend's kernels
+    launched twice a frame (temporal match and re-match); the card's run
+    solves every frame, as the CPU's, with a Sim(3) ATE within
+    max(1.5 c, c + 0.02 m) of the CPU's c (card and CPU are not held equal
+    on discrete stats: near-tied RANSAC candidates fall either way)."""
+    require_cuda()
+    from libviso_torch.pipeline.mono import run_mono_sequence
+    from libviso_torch.utils.metrics import ate_rmse
+
+    seq = generate_sequence(num_frames=6, num_points=600, seed=13, width=416,
+                            height=160, speed=0.6, yaw_rate=0.01)
+    frames, K = [f[0] for f in seq.frames], seq.P1[:, :3]
+    kernels = {"dense": [(cm, "launches")],
+               "fused": [(fm.launches, "fused_gated_two_min")],
+               "sweep": [(fm.launches, "sweep_order"),
+                         (fm.launches, "fused_sweep_two_min")]}
+
+    def count(where, key):
+        return where[key] if isinstance(where, dict) else getattr(where, key)
+
+    stats = {}
+    for backend, counters in kernels.items():
+        before = [count(*c) for c in counters]
+        res = run_mono_sequence(frames, K, _mono_cfg(), device="cuda",
+                                backend=backend)
+        after = [count(*c) for c in counters]
+        assert [a - b for a, b in zip(after, before)] == \
+            [2 * len(frames)] * len(counters), backend
+        stats[backend] = [{k: s[k] for k in ("ok", "num_matches",
+                                             "num_inliers", "scale_support")}
+                          for s in res.stats]
+        assert res.frame_ok[1:].all(), backend
+        if backend == "dense":
+            gpu = res
+    assert stats["fused"] == stats["dense"] == stats["sweep"]
+    cpu = run_mono_sequence(frames, K, _mono_cfg(), device="cpu")
+    assert cpu.frame_ok[1:].all()
+    c = ate_rmse(cpu.poses, seq.gt_poses, align="sim3")
+    assert ate_rmse(gpu.poses, seq.gt_poses, align="sim3") <= max(1.5 * c,
+                                                                  c + 0.02)

@@ -32,7 +32,9 @@ def test_package_has_sources():
     assert {"cli.py", "pipeline/stereo.py", "pipeline/multistream.py",
             "pipeline/batched.py", "ops/cuda_matching.py",
             "ops/fused_matching.py", "ops/pyramid.py", "synthetic_world.py",
-            "utils/checkpoint.py", "utils/debug_viz.py"} <= names
+            "utils/checkpoint.py", "utils/debug_viz.py", "pipeline/mono.py",
+            "geometry/essential.py", "geometry/five_point.py",
+            "utils/stats.py"} <= names
 
 
 @pytest.mark.parametrize("path", SOURCES,

@@ -168,3 +168,34 @@ def test_cli_eval(tmp_path, capsys):
         save_poses_kitti(str(tmp_path / "one.txt"), gt[:1])
         cli.main(["eval", str(tmp_path / "one.txt"),
                   str(tmp_path / "gt.txt")])
+
+
+def test_cli_kitti_runs_each_of_several_sequences(kitti_home, capsys):
+    """`kitti SHA 77,78` runs each sequence in turn, as the JAX CLI does:
+    one JSON line and one pose file per sequence."""
+    from PIL import Image
+
+    from libviso_torch.synthetic import generate_sequence
+
+    seq = generate_sequence(num_frames=4, num_points=500, seed=8, width=416,
+                            height=160)
+    base = kitti_home / "sequences" / "78"
+    for cam, P in (("image_0", seq.P1), ("image_1", seq.P2)):
+        (base / cam).mkdir(parents=True)
+    (base / "calib.txt").write_text(
+        "".join(f"{row}: " + " ".join(f"{v:.9e}" for v in P.reshape(-1))
+                + "\n" for row, P in (("P0", seq.P1), ("P1", seq.P2))))
+    for i, pair in enumerate(seq.frames):
+        for cam, im in zip(("image_0", "image_1"), pair):
+            Image.fromarray(im.astype(np.uint8)).save(
+                base / cam / f"{i:06d}.png")
+    cli.main(["kitti", "multi", "77,78", "0", "3", "--kitti-home",
+              str(kitti_home), "--device", "cpu"])
+    lines = [json.loads(x) for x in
+             capsys.readouterr().out.strip().splitlines()]
+    assert [x["sequence"] for x in lines] == ["77", "78"]
+    for x in lines:
+        assert x["frames"] == 4 and x["solved"] == 3
+        assert np.loadtxt(x["poses"]).shape == (4, 12)
+        assert x["poses"].endswith(f"/{x['sequence']}/multi/data/"
+                                   f"{x['sequence']}.txt")

@@ -35,3 +35,23 @@ def jax_frame_gumbel(seed: int, t: int, num_hypotheses: int, num_slots: int):
     rk, = jax.random.split(key, 1)
     return to_torch(jax.random.gumbel(rk, (num_hypotheses, num_slots),
                                       jnp.float32))
+
+
+def jax_mono_gumbel(seed: int, t: int, H1: int, H2: int, N: int):
+    """The two RANSAC draws (est1, est2) the JAX mono step makes for frame
+    ``t`` (PRNGKey(seed) -> fold_in(t) -> split -> gumbel each), as torch
+    tensors."""
+    key = jax.random.fold_in(jax.random.PRNGKey(seed), t)
+    k1, k2 = jax.random.split(key)
+    return (to_torch(jax.random.gumbel(k1, (H1, N), jnp.float32)),
+            to_torch(jax.random.gumbel(k2, (H2, N), jnp.float32)))
+
+
+def jax_null_basis(Q):
+    """The 5-point solver's null-space basis as the JAX package computes
+    it (``jnp.linalg.svd``, rows 5-8 of Vh reversed), for the port's
+    ``null_basis`` seam: Q (..., 5, 9) torch -> (..., 4, 3, 3) torch."""
+    vt = np.asarray(jnp.linalg.svd(jnp.asarray(to_np(Q)),
+                                   full_matrices=True)[2])
+    basis = vt[..., 5:9, :].reshape(*Q.shape[:-2], 4, 3, 3)[..., ::-1, :, :]
+    return torch.from_numpy(np.ascontiguousarray(basis)).to(Q.device)

@@ -3,6 +3,7 @@
 
   python3 tools/profile_torch_step.py [--repeats 4] [--out FILE.json]
   python3 tools/profile_torch_step.py --serve [--repeats 3] [--out ...]
+  python3 tools/profile_torch_step.py --mono [--repeats 3] [--out ...]
 
 Runs from the repository root, on the KITTI-size synthetic sequence of
 chip_smoke.py (20 frames of 1241x376, default detector and RANSAC, seed 0),
@@ -31,6 +32,18 @@ of that generator (seeds 0-3, lengths 20, 20, 16, 12; metric l1):
   3. a torch.profiler trace of timesteps 10-14 under each backend (its
      "per frame" counts are then per timestep).
 
+With ``--mono`` it measures the monocular path at full width
+(PipelineConfig.mono(): 1536 slots, 384-value descriptors, the 5-point
+solver) on the left frames of that sequence, K = P1[:, :3]:
+
+  1. frames/s of run_mono_sequence over frames 2-19 under metric l2 (dense)
+     and metric l1 through each matcher backend (dense, fused, sweep),
+     after a warm-up and in alternating order;
+  2. per-stage host times of the mono step (upload + front-end, temporal
+     match, first essential matrix, re-match, second essential matrix,
+     pose recovery + refinement + scale), a sync after each stage;
+  3. a torch.profiler trace of frames 10-14 under l2 dense and l1 fused.
+
 Everything is printed; ``--out`` also writes it as JSON.
 """
 
@@ -52,7 +65,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from libviso_torch.config import Calib, PipelineConfig  # noqa: E402
 from libviso_torch.geometry.mvg import F_from_P_host  # noqa: E402
 from libviso_torch.ops import cuda_matching, matching  # noqa: E402
-from libviso_torch.pipeline import multistream  # noqa: E402
+from libviso_torch.pipeline import mono, multistream  # noqa: E402
 from libviso_torch.pipeline.stereo import (  # noqa: E402
     build_frontend,
     build_prepare,
@@ -72,6 +85,10 @@ KITTI_SEQUENCE = dict(num_frames=20, num_points=900, seed=0, width=1241,
 PROFILED = range(10, 15)   # frames inside the torch.profiler window
 VARIANTS = ("l1", "l1-plain", "l2")
 SERVE_LENGTHS = (20, 20, 16, 12)
+MONO_VARIANTS = (("l2", "dense"), ("l1", "dense"), ("l1", "fused"),
+                 ("l1", "sweep"))
+MONO_STAGES = ("front_end", "match", "est1", "rematch", "est2",
+               "pose_and_scale")
 BACKENDS = ("dense", "fused", "sweep")
 
 
@@ -319,6 +336,85 @@ def serve_main(args, device, result):
         print(f"[serve-profile] {backend}: {json.dumps(pr)}")
 
 
+def mono_run(seq, metric, backend, device, on_frame=None):
+    return mono.run_mono_sequence(
+        [f[0] for f in seq.frames], seq.P1[:, :3],
+        PipelineConfig.mono().with_metric(metric), seed=0, device=device,
+        backend=backend, on_frame=on_frame)
+
+
+def mono_rate(seq, metric, backend, device):
+    """Frames/s of one mono run over frames 2..T-1."""
+    ends = []
+
+    def on_frame(t, out):
+        sync(device)
+        ends.append(time.perf_counter())
+
+    res = mono_run(seq, metric, backend, device, on_frame)
+    frame_ms = [1e3 * (b - a) for a, b in zip(ends[1:], ends[2:])]
+    return {"fps": (len(ends) - 2) / (ends[-1] - ends[1]),
+            "median_frame_ms": statistics.median(frame_ms),
+            "solved": int(res.frame_ok.sum())}
+
+
+def mono_stage_times(seq, metric, backend, device):
+    """Mean per-stage host times [ms] of the mono step over frames 2..T-1,
+    a sync after each stage (read through build_mono_step's on_stage hook;
+    "front_end" includes the draws and the upload before it)."""
+    marks = []
+
+    def on_stage(stage):
+        sync(device)
+        marks.append(time.perf_counter())
+
+    cfg = PipelineConfig.mono().with_metric(metric)
+    step = mono.build_mono_step(seq.P1[:, :3], cfg, backend=backend,
+                                on_stage=on_stage)
+    n = cfg.detector.num_slots
+    h1, h2 = mono.mono_hypotheses(mono.MonoConfig())
+    state = mono.empty_mono_state(cfg, device)
+    for t, (im, _) in enumerate(seq.frames):
+        sync(device)
+        marks.append(time.perf_counter())
+        g1, g2 = mono.mono_draws(0, t, (h1, n), (h2, n))
+        state, _ = step(state, torch.tensor(np.asarray(im), device=device),
+                        (g1.to(device), g2.to(device)))
+    rows = np.diff(np.asarray(marks).reshape(-1, 7), axis=1)[2:] * 1e3
+    mean = list(rows.mean(axis=0)) + [rows.sum(axis=1).mean()]
+    return {f"{k}_ms": float(x)
+            for k, x in zip(MONO_STAGES + ("frame",), mean)}
+
+
+def mono_main(args, device, result):
+    seq = generate_sequence(**KITTI_SEQUENCE)
+    names = [f"{m} {b}" for m, b in MONO_VARIANTS]
+    for metric, backend in MONO_VARIANTS:   # warm-up
+        mono_rate(seq, metric, backend, device)
+    runs = {k: [] for k in names}
+    for r in range(args.repeats):
+        for name, (metric, backend) in list(zip(
+                names, MONO_VARIANTS))[::1 if r % 2 == 0 else -1]:
+            row = mono_rate(seq, metric, backend, device)
+            runs[name].append(row)
+            print(f"[mono] round {r} {name}: {json.dumps(row)}")
+    for name, rows in runs.items():
+        print(f"[mono] {name}: median "
+              f"{statistics.median(x['fps'] for x in rows)} frames/s over "
+              f"{len(rows)} runs")
+    result["mono_rate"] = runs
+    result["mono_stages"], result["mono_profile"] = {}, {}
+    for metric, backend in (("l2", "dense"), ("l1", "fused")):
+        name = f"{metric} {backend}"
+        st = mono_stage_times(seq, metric, backend, device)
+        result["mono_stages"][name] = st
+        print(f"[mono-stages] {name}: {json.dumps(st)}")
+        pr = profile_frames(None, metric, device, run=lambda cb, m=metric,
+                            b=backend: mono_run(seq, m, b, device, cb))
+        result["mono_profile"][name] = pr
+        print(f"[mono-profile] {name}: {json.dumps(pr)}")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--repeats", type=int, default=4,
@@ -326,6 +422,8 @@ def main():
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--serve", action="store_true",
                     help="measure multi-stream serving instead")
+    ap.add_argument("--mono", action="store_true",
+                    help="measure the monocular path instead")
     ap.add_argument("--out", help="also write the results here as JSON")
     args = ap.parse_args()
     device = torch.device(args.device)
@@ -342,6 +440,9 @@ def main():
         print(result["card"])
     if args.serve:
         serve_main(args, device, result)
+        return finish(args, result)
+    if args.mono:
+        mono_main(args, device, result)
         return finish(args, result)
     seq = generate_sequence(**KITTI_SEQUENCE)
 
