@@ -59,7 +59,36 @@ Phases, each of which exits non-zero on failure:
      backend's kernels (two matcher calls a frame) within the Sim(3) ATE
      bound of the JAX package's run, and the three backends give the same
      discrete per-frame stats on the same draws; metric l2 runs too; and
-     `cli mono --device cuda` runs on a small image folder.
+     `cli mono --device cuda` runs on a small image folder;
+ 11. stereo loop closure at full width (PipelineConfig().with_metric("l1"),
+     the LoopEngine defaults: a store of 128 keyframes of 256 slots, 256
+     verification hypotheses, guided radius 16) on a 96-frame KITTI-size
+     circle, under each matcher backend, on the JAX package's draws
+     (tools/threefry.py): 95/95 solved, the JAX run's loop
+     pairs with inliers within 10 %, the optimized ATE within max(1.5 J,
+     J + 0.02 m) of JAX's J, graph cost falling, the optimized endpoint
+     closer than the open chain's as in JAX's run, the three backends'
+     candidates and loops equal, and the backend's kernels launched once
+     per frame, once per candidate search and once per guided match (the
+     wrappers' counts, as phase 9 counts them);
+ 12. the kernels at the loop shapes: (128, 256, 128), the candidate
+     search over the store, and (20, 256, 128), the mono loop's: the L1,
+     gated and sweep kernels and the order kernel equal their plain
+     versions bitwise on integer descriptors and on a real candidate
+     search of phases 11 and 13, and are timed there beside their bounds,
+     plain versions and torch.cdist(p=1);
+ 13. the mono Sim(3) loop on the two-lap plaza circuit (81 frames,
+     tests/test_mono.py's mono_config() with subpixel corners, a keyframe
+     every 4 frames, min_gap 20) on the JAX package's draws: under l2
+     (dense) every frame solved, at least 2 loops 36-44 frames apart with
+     at least 20 inliers, an edge weight above 0.5 and a node scale above
+     1.3 (tests/test_sim3.py's properties), the corrected Sim(3) ATE
+     at most 1.01x the open chain's and within max(1.5 J, J + 0.02 m) of
+     JAX's; under l1 (fused, kernel #2 at (20, 256, 128)) every frame
+     solved;
+ 14. entry points: `cli kitti --loop-closure` on a mini KITTI tree, `cli
+     synth --world-loop --frames 6` and `cli mono --sim3-loop` on a folder
+     of frames, with the default --device cuda.
 
 The line before the last is the kernel table as JSON: per kernel its
 launches on the main path, its time beside its bound (the larger of the
@@ -68,13 +97,17 @@ card's issue rate, 132 SMs x 128 lanes x 1.98 GHz; 67 TFLOP/s counts an
 FMA as two) and the share of the bound it reaches, the plain version's
 time and the library call's, at the main shape (3, 1280, 128) and the
 serving shape (12, 1280, 128), and at the mono shape (1, 1536, 384) with
-its launches in the 20-frame mono run (`mono_launches`).  The sweep's
+its launches in the 20-frame mono run (`mono_launches`), and at the loop
+shapes (128, 256, 128) and (20, 256, 128) with the launches of the loop
+runs (`loop_launches`, phase 11 under the kernel's backend;
+`mono_loop_launches`, phase 13's l1 run).  The sweep's
 entry is its whole route
 (`ms`: order kernel and sweep kernel, `order_ms` and `sweep_ms` each
 alone, `fused_ms` kernel #2 in the same turns, `route_launches` by
-torch.profiler), bounded by the (query, target) pairs that pass the
-position and validity gates, whatever the tiling; its (block, window)
-pairs and skip share beside.  Kernel times are device times: a sleep
+torch.profiler).  Kernel #2 and the route compute one function, so both
+are bounded by the (query, target) pairs that pass the position and
+validity gates (`pairs`), whatever the tiling; the route's (block,
+window) pairs and skip share beside.  Kernel times are device times: a sleep
 kernel holds the card while the host queues the timed launches.  The
 script's wall time is printed before it.  The last line is
 {"ok": true, "device": {...}}.
@@ -131,6 +164,68 @@ MONO_ATE_BOUND = {m: max(1.5 * a, a + 0.02) for m, a in JAX_MONO_ATE_M.items()}
 MONO_SHAPE = (1, 1536, 384)   # one mono match problem
 MONO_STATS = ("frame", "ok", "num_matches", "num_inliers", "scale_support",
               "span")
+# Phase 11: the JAX package's loop run on the 96-frame KITTI-size circle
+# (radius 10 m, seed 3, 1400 points), PipelineConfig().with_metric('l1'),
+# the LoopEngine defaults, keyframe_every 4, min_gap 24, min_matches 40,
+# min_inliers 20, seed 0, computed on the CPU with:
+#   python -c "import jax; jax.config.update('jax_platforms', 'cpu')
+#   import numpy as np
+#   from libviso_tpu.config import PipelineConfig
+#   from libviso_tpu.pipeline.loop import run_with_loop_closure
+#   from libviso_tpu.synthetic import generate_sequence
+#   from libviso_tpu.utils.metrics import ate_rmse
+#   T = 96; yaw = 2 * np.pi / (T - 1); st = np.zeros((T, 6))
+#   st[1:] = [0, yaw, 0, 0, 0, 20 * np.sin(yaw / 2)]
+#   s = generate_sequence(num_frames=T, num_points=1400, seed=3,
+#       width=1241, height=376, f=718.856, base=0.5371657, trajectory=st)
+#   r = run_with_loop_closure(list(s.frames), s.P1, s.P2,
+#       PipelineConfig().with_metric('l1'), keyframe_every=4, min_gap=24,
+#       min_matches=40, min_inliers=20, seed=0)
+#   e = lambda P: np.linalg.norm(P[-1, :3, 3] - s.gt_poses[-1, :3, 3])
+#   print(r.frame_ok.sum(), [(l.frame_new, l.frame_old, l.num_inliers)
+#       for l in r.loops], len(r.candidates), r.graph_cost,
+#       ate_rmse(r.poses_vo, s.gt_poses), ate_rmse(r.poses, s.gt_poses),
+#       e(r.poses_vo), e(r.poses))"
+JAX_LOOP = {
+    "solved": 95, "loops": [(80, 0, 20), (84, 0, 30), (88, 0, 24),
+                            (92, 0, 44)],
+    "candidates": 5, "graph_cost": (2.09879732131958, 0.00498834066092968),
+    "ate_vo_m": 0.07517513632774353, "ate_opt_m": 0.11447013169527054,
+    "end_vo_m": 0.11620201170444489, "end_opt_m": 0.06631191074848175}
+LOOP_ATE_BOUND = max(1.5 * JAX_LOOP["ate_opt_m"], JAX_LOOP["ate_opt_m"] + 0.02)
+LOOP_KW = dict(keyframe_every=4, min_gap=24, min_matches=40, min_inliers=20,
+               seed=0)
+LOOP_SHAPE = (128, 256, 128)       # the candidate search over the store
+MONO_LOOP_SHAPE = (20, 256, 128)   # the mono loop's, 20 keyframes
+# Phase 13: the JAX package's mono loop on the two-lap plaza circuit, per
+# metric (tests/test_mono.py's mono_config() with subpixel=True, seed 0),
+# computed on the CPU with:
+#   python -c "import jax; jax.config.update('jax_platforms', 'cpu')
+#   import dataclasses, numpy as np
+#   from libviso_tpu.pipeline.mono_loop import run_mono_sim3_loop
+#   from libviso_tpu.synthetic_world import generate_plaza_sequence
+#   from libviso_tpu.utils.metrics import ate_rmse
+#   from tests.test_mono import mono_config
+#   s = generate_plaza_sequence(num_frames=81, seed=5, circuits=2)
+#   for m in ('l2', 'l1'):
+#       c = mono_config(); c = dataclasses.replace(c, detector=
+#           dataclasses.replace(c.detector, subpixel=True))
+#       c = c.with_metric(m)
+#       r = run_mono_sim3_loop([f[0] for f in s.frames], s.P1[:, :3], c,
+#           seed=0, keyframe_every=4, min_gap=20)
+#       print(m, r.frame_ok.sum(), [(l.frame_old, l.frame_new,
+#           l.num_inliers, l.s_rel) for l in r.loops], r.edge_scale,
+#           r.node_scales.max(), ate_rmse(r.poses_vo, s.gt_poses,
+#           align='sim3'), ate_rmse(r.poses, s.gt_poses, align='sim3'))"
+JAX_MONO_LOOP = {
+    "l2": {"solved": 80, "loops": [(28, 68, 55), (32, 72, 56), (36, 76, 56)],
+           "scales": (3.3669798, 1.9997605, 1.1218430),
+           "edge_scale": (0.000356, 0.846078, 0.000369),
+           "node_scale_max": 1.9997782707214355,
+           "ate_vo_m": 8.45536317778224, "ate_m": 8.396140297593167},
+    "l1": {"solved": 80, "loops": [(16, 36, 15)], "scales": (0.5491794,),
+           "edge_scale": (5.19e-06,), "node_scale_max": 1.000009536743164,
+           "ate_vo_m": 8.74656725391418, "ate_m": 8.74723717250361}}
 KEYS = ("ok", "num_lr", "num_circle", "num_inliers")
 STATS = ("frame", "ok", "num_kp1", "num_lr", "num_circle", "num_inliers")
 SERVE_LENGTHS = (20, 20, 16, 12)   # streams of seeds 0..3
@@ -145,6 +240,8 @@ PER_STREAM_SOLVES = {
 BACKEND_KERNELS = {"dense": ("l1_distance_matrix",),
                    "fused": ("fused_gated_two_min",),
                    "sweep": ("sweep_order", "fused_sweep_two_min")}
+KERNELS = ("l1_distance_matrix", "fused_gated_two_min", "sweep_order",
+           "fused_sweep_two_min")
 
 
 def check(cond, msg):
@@ -1036,8 +1133,8 @@ def mono_kernel_phase(seq):
             "library_ms": t["cdist"], "bound": l1_bound},
         "fused_gated_two_min": {
             "ms": t["gated"], "plain_ms": t["gated plain"],
-            "library_ms": None,
-            "bound": two_min_bound(B, N, N, D, B * N * N)},
+            "library_ms": None, "pairs": pairs,
+            "bound": two_min_bound(B, N, N, D, pairs)},
         "sweep_order": {
             "ms": t["order"], "plain_ms": t["order plain"],
             "library_ms": None,
@@ -1159,6 +1256,538 @@ def mono_cli_phase():
           f"{json.dumps(out)}")
 
 
+
+def _jax_stereo_draws(cfg):
+    """The JAX package's per-frame and loop verification draws
+    (tools/threefry.py: numpy, no JAX)."""
+    import torch
+
+    from tools import threefry as tf
+
+    shape = (cfg.ransac.num_hypotheses, cfg.detector.num_slots)
+    vshape = (max(256, cfg.ransac.num_hypotheses), 256)
+    return dict(
+        draws=lambda t: torch.from_numpy(tf.frame_gumbel(0, t, shape)),
+        verify_draws=lambda t, it: torch.from_numpy(
+            tf.loop_verify_gumbel(0, t, it, vshape)))
+
+
+def loop_circle_sequence(T=96):
+    """The 96-frame KITTI-size circle of radius 10 m (tests/
+    test_loop_closure.py's _circle_sequence at full size)."""
+    from libviso_torch.synthetic import generate_sequence
+
+    yaw = 2 * np.pi / (T - 1)
+    steps = np.zeros((T, 6))
+    steps[1:] = [0.0, yaw, 0.0, 0.0, 0.0, 2 * 10.0 * np.sin(yaw / 2)]
+    return generate_sequence(num_frames=T, num_points=1400, seed=3,
+                             width=1241, height=376, f=718.856,
+                             base=0.5371657, trajectory=steps)
+
+
+def loop_phase():
+    """Phase 11: run_with_loop_closure on the 96-frame KITTI-size circle
+    under each backend.  Returns (per-kernel launches in its backend's run,
+    the candidate search of keyframe 80 in the dense run: (q_xy, q_desc,
+    q_valid, kf_xy, kf_desc, kf_valid), ms of each run)."""
+    import torch
+
+    from libviso_torch.config import PipelineConfig
+    from libviso_torch.pipeline import loop as tl
+    from libviso_torch.utils.metrics import ate_rmse
+
+    t0 = time.perf_counter()
+    seq = loop_circle_sequence()
+    frames = list(seq.frames)
+    T = len(frames)
+    print(f"[loop] {T}-frame circle of 1241x376 generated in "
+          f"{time.perf_counter() - t0:.1f} s")
+    cfg = PipelineConfig().with_metric("l1")
+    draws = _jax_stereo_draws(cfg)
+    captured = {}
+    real_offer = tl.LoopEngine.offer
+
+    def offer(self, t, xy, desc, obs, X, valid, pos_fn):
+        # keyframe 80's candidate search, the first that closes a loop
+        if t == 80 and "problem" not in captured:
+            captured["problem"] = (xy, desc, valid, self.kf_xy.clone(),
+                                   self.kf_desc.clone(),
+                                   self.kf_valid.clone())
+        return real_offer(self, t, xy, desc, obs, X, valid, pos_fn)
+
+    gt = seq.gt_poses
+    results, launches, fps = {}, {}, {}
+    tl.LoopEngine.offer = offer
+    try:
+        for backend in ("dense", "fused", "sweep"):
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            res = tl.run_with_loop_closure(frames, seq.P1, seq.P2, cfg,
+                                           backend=backend, device="cuda",
+                                           **LOOP_KW, **draws)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            counts = read_launches()
+            fps[backend] = T / dt
+            searches = res.keyframes_offered - 1
+            guided = sum(3 for c in res.candidates if "refine_trace" in c)
+            for name in BACKEND_KERNELS[backend]:
+                launches[name] = counts[name]
+                check(counts[name] == T + searches + guided,
+                      f"loop {backend}: {name} launched {counts[name]} "
+                      f"times, not {T} frames + {searches} candidate "
+                      f"searches + {guided} guided matches")
+            solved = int(res.frame_ok.sum())
+            pairs = [(le.frame_new, le.frame_old) for le in res.loops]
+            want = [(n, o) for n, o, _ in JAX_LOOP["loops"]]
+            ate_vo = ate_rmse(res.poses_vo, gt)
+            ate_opt = ate_rmse(res.poses, gt)
+            end = [float(np.linalg.norm(P[-1, :3, 3] - gt[-1, :3, 3]))
+                   for P in (res.poses_vo, res.poses)]
+            check(solved == JAX_LOOP["solved"],
+                  f"loop {backend}: solved {solved}/{T - 1}")
+            check(pairs == want, f"loop {backend}: loops {pairs}, JAX {want}")
+            for le, (_, _, n) in zip(res.loops, JAX_LOOP["loops"]):
+                check(abs(le.num_inliers - n) <= 0.1 * n,
+                      f"loop {backend}: {le.frame_new}->{le.frame_old} "
+                      f"{le.num_inliers} inliers, JAX {n}")
+            check(ate_opt <= LOOP_ATE_BOUND,
+                  f"loop {backend}: optimized ATE {ate_opt} m above "
+                  f"{LOOP_ATE_BOUND} m (JAX {JAX_LOOP['ate_opt_m']} m)")
+            check(res.graph_cost[1] < res.graph_cost[0],
+                  f"loop {backend}: graph cost {res.graph_cost}")
+            check(end[1] < end[0], f"loop {backend}: endpoint error "
+                  f"{end[1]} m optimized, {end[0]} m open chain (JAX "
+                  f"{JAX_LOOP['end_opt_m']} < {JAX_LOOP['end_vo_m']})")
+            results[backend] = (
+                [(c["frame_new"], c["frame_old"], c["score"], c["ok"],
+                  c["num_inliers"], c["refined_inliers"])
+                 for c in res.candidates],
+                [(le.frame_new, le.frame_old, le.num_inliers,
+                  le.tr.tolist()) for le in res.loops])
+            found = [(le.frame_new, le.frame_old, le.num_inliers)
+                     for le in res.loops]
+            print(f"[loop] {backend}: solved {solved}/{T - 1}; loops {found} "
+                  f"(JAX {JAX_LOOP['loops']}); {len(res.candidates)} "
+                  f"candidates verified (JAX {JAX_LOOP['candidates']}); "
+                  f"graph cost {res.graph_cost[0]:.6f} -> "
+                  f"{res.graph_cost[1]:.6g} (JAX {JAX_LOOP['graph_cost']}); "
+                  f"edge scales {res.loop_edge_scale.tolist()}; ATE "
+                  f"{ate_vo:.4f} m open chain, {ate_opt:.4f} m optimized "
+                  f"(JAX {JAX_LOOP['ate_vo_m']:.4f} / "
+                  f"{JAX_LOOP['ate_opt_m']:.4f}, bound "
+                  f"{LOOP_ATE_BOUND:.4f}); endpoint {end[0]:.4f} -> "
+                  f"{end[1]:.4f} m; {' and '.join(BACKEND_KERNELS[backend])}"
+                  f" {counts[BACKEND_KERNELS[backend][0]]} launches each "
+                  f"({T} frames, {searches} candidate searches, {guided} "
+                  f"guided matches); {fps[backend]:.2f} frames/s with the "
+                  f"loop work")
+    finally:
+        tl.LoopEngine.offer = real_offer
+    check(results["fused"] == results["dense"] == results["sweep"],
+          "loop: the backends' candidates or loops differ")
+    print("[loop] dense == fused == sweep: the same candidates (frames, "
+          "scores, seed and refined inliers) and loop edges (bitwise tr) on "
+          "the same draws")
+    # one candidate search through each route: one launch of each of the
+    # route's kernels, by the wrappers' counts
+    xy, desc, valid, kf_xy, kf_desc, kf_valid = captured["problem"]
+    for backend in ("dense", "fused", "sweep"):
+        match_all = tl._build_candidate_matcher(cfg, 128, 256, backend, 0.8)
+        reset_launches()
+        match_all(xy, desc, valid, kf_xy, kf_desc, kf_valid)
+        torch.cuda.synchronize()
+        got = read_launches()
+        want = {k: int(k in BACKEND_KERNELS[backend]) for k in got}
+        check(got == want, f"loop {backend}: a candidate search launched "
+              f"{got}, not {want}")
+    print("[loop] a candidate search of (128, 256, 128) is one launch of "
+          "each of the route's kernels (each route)")
+    return launches, captured["problem"], fps
+
+
+def _finite_max_abs_diff(x, y):
+    """max |x - y| where y is finite (0.0 where none is)."""
+    import torch
+
+    d = (x.float() - y.float())[torch.isfinite(y.float())]
+    return float(d.abs().max()) if d.numel() else 0.0
+
+
+def _problem_from_search(problem):
+    """The match_problem_batch arguments of a candidate search (the new
+    keyframe against each store slot): radius 1e9, no Sampson gate."""
+    import torch
+
+    xy, desc, valid, kf_xy, kf_desc, kf_valid = problem
+    K, B, D = kf_desc.shape
+    return [xy.expand(K, B, 2).contiguous(),
+            valid.expand(K, B).contiguous(),
+            desc.expand(K, B, D).contiguous(), kf_xy, kf_valid,
+            kf_desc.contiguous(),
+            torch.eye(3, device="cuda").expand(K, 3, 3).contiguous(),
+            torch.zeros(K, dtype=torch.bool, device="cuda")]
+
+
+def _integer_problem(shape, seed):
+    """A (B, N, D) loop-shaped problem with integer descriptors: positions
+    in a KITTI image, 90 % of the slots valid, no Sampson gate."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    B, N, D = shape
+
+    def xy():
+        return (torch.rand((B, N, 2), generator=g, device="cuda")
+                * torch.tensor([1240.0, 375.0], device="cuda"))
+
+    def valid():
+        return torch.rand((B, N), generator=g, device="cuda") > 0.1
+
+    def desc():
+        return torch.randint(-1020, 1021, (B, N, D), generator=g,
+                             device="cuda").float()
+
+    q_xy, q_valid, q_d = xy(), valid(), desc()
+    return [q_xy, q_valid, q_d, xy(), valid(), desc(),
+            torch.eye(3, device="cuda").expand(B, 3, 3).contiguous(),
+            torch.zeros(B, dtype=torch.bool, device="cuda")]
+
+
+def loop_kernel_phase(problems):
+    """Phase 12: kernels #1-#3 against their plain versions at the loop
+    shapes, on integer descriptors and on the real candidate searches of
+    ``problems`` ({shape: candidate search}), and timed on the real ones.
+    Returns {shape: {kernel: row of the kernels line}} and the max abs
+    error per kernel."""
+    import torch
+
+    from libviso_torch.ops import cuda_matching as cm
+    from libviso_torch.ops import fused_matching as fm
+
+    radius, thresh = 1e9, 1.0
+    err = {k: 0.0 for k in KERNELS}
+    rows = {}
+    for seed, (shape, search) in enumerate(problems.items()):
+        for label, args in (("integer", _integer_problem(shape, 12 + seed)),
+                            ("candidate search", _problem_from_search(
+                                search))):
+            check(tuple(args[2].shape) == shape,
+                  f"loop problem {tuple(args[2].shape)} != {shape}")
+            sides = (args[0], args[1], args[3], args[4])
+            outs = {
+                "l1_distance_matrix": (cm.l1_distance_matrix(args[2],
+                                                             args[5]),
+                                       cm.l1_distance_matrix_plain(
+                                           args[2], args[5])),
+                "fused_gated_two_min": (
+                    fm.fused_gated_two_min(*args, thresh, radius),
+                    fm.fused_gated_two_min_plain(*args, thresh, radius)),
+                "sweep_order": (fm.sweep_order(*sides),
+                                fm.sweep_order_plain(*sides)),
+                "fused_sweep_two_min": (
+                    fm.sorted_fused_two_min(*args, thresh, radius),
+                    fm.sorted_fused_two_min(
+                        *args, thresh, radius,
+                        sweep=fm.fused_sweep_two_min_plain))}
+            how = {}
+            for name, (got, want) in outs.items():
+                got = got if isinstance(got, tuple) else (got,)
+                want = want if isinstance(want, tuple) else (want,)
+                bitwise = all(torch.equal(x, y) for x, y in zip(got, want))
+                e = max(_finite_max_abs_diff(x, y) for x, y in zip(got,
+                                                                  want))
+                if label == "integer" or name == "sweep_order":
+                    check(bitwise, f"{name} {shape} {label}: != plain "
+                          f"bitwise")
+                elif not bitwise:
+                    # float sums in another order: values within rtol
+                    # 1e-5, idx wherever the two smallest are not within
+                    # that of a tie
+                    for x, y in zip(got[:2], want[:2]):
+                        check(torch.allclose(x, y, rtol=1e-5, atol=0.0),
+                              f"{name} {shape} {label}: beyond rtol 1e-5")
+                    if len(want) == 3:
+                        clear = want[1] - want[0] > 1e-5 * want[1]
+                        check(torch.equal(got[2][clear], want[2][clear]),
+                              f"{name} {shape} {label}: idx differs away "
+                              f"from a tie")
+                err[name] = max(err[name], e)
+                how[name] = "bitwise" if bitwise else f"rtol 1e-5 ({e:.3g})"
+            print(f"[loop-kernel] {shape} {label}: == plain: " + ", ".join(
+                f"{k} {v}" for k, v in how.items()))
+        # times on the real candidate search, in turns
+        args = _problem_from_search(search)
+        sides = (args[0], args[1], args[3], args[4])
+        order = fm.sweep_order(*sides)
+        q_d, t_d = args[2], args[5]
+        fns = {
+            "l1 plain": lambda: cm.l1_distance_matrix_plain(q_d, t_d),
+            "l1": lambda: cm.l1_distance_matrix(q_d, t_d),
+            "cdist": lambda: torch.cdist(q_d, t_d, p=1),
+            "gated plain": lambda: fm.fused_gated_two_min_plain(
+                *args, thresh, radius),
+            "gated": lambda: fm.fused_gated_two_min(*args, thresh, radius),
+            "order plain": lambda: fm.sweep_order_plain(*sides),
+            "order": lambda: fm.sweep_order(*sides),
+            "sweep": lambda: fm.swept_two_min(*args, order, thresh, radius),
+            "sweep route": lambda: fm.sorted_fused_two_min(*args, thresh,
+                                                           radius),
+            "sweep route plain": lambda: fm.sorted_fused_two_min(
+                *args, thresh, radius, sweep=fm.fused_sweep_two_min_plain),
+        }
+        for fn in fns.values():
+            fn()
+        torch.cuda.synchronize()
+        ms = {k: [] for k in fns}
+        for k in list(fns) + list(fns)[::-1]:
+            ms[k].append(_time_ms(fns[k], reps=10))
+        t = {k: sum(v) / len(v) for k, v in ms.items()}
+        B, N, D = shape
+        pairs = int(fm.gate(*sides[:2], *sides[2:], args[6], args[7],
+                            thresh, radius).sum())
+        # store slots that hold a keyframe: the problems with a valid
+        # target (#2 computes all B, the sweep skips the empty ones)
+        filled = int(args[4].any(-1).sum())
+        n_boxes = sum(-(-N // k) for k in fm.SWEEP_TILING)
+        row = {
+            "l1_distance_matrix": {
+                "ms": t["l1"], "plain_ms": t["l1 plain"],
+                "library_ms": t["cdist"],
+                "bound": bound_ms(2 * B * N * N * D,
+                                  4 * B * (2 * N * D + N * N))},
+            "fused_gated_two_min": {
+                "ms": t["gated"], "plain_ms": t["gated plain"],
+                "library_ms": None, "pairs": pairs,
+                "bound": two_min_bound(B, N, N, D, pairs)},
+            "sweep_order": {
+                "ms": t["order"], "plain_ms": t["order plain"],
+                "library_ms": None,
+                "bound": bound_ms(2 * B * N * math.log2(N),
+                                  B * (2 * N * 9 + 2 * N * 4 + 16 * n_boxes))},
+            "fused_sweep_two_min": {
+                "ms": t["sweep route"], "order_ms": t["order"],
+                "sweep_ms": t["sweep"], "fused_ms": t["gated"],
+                "plain_ms": t["sweep route plain"], "library_ms": None,
+                "pairs": pairs, "filled_problems": filled,
+                "bound": two_min_bound(B, N, N, D, pairs)},
+        }
+        for r in row.values():
+            r["bound_ms"], r["bound_by"] = r.pop("bound")
+            r["share_of_bound"] = r["bound_ms"] / r["ms"]
+        rows[shape] = row
+        print(f"[loop-kernel] {shape} candidate search, ms per call (two "
+              f"turns each): " + ", ".join(
+                  f"{k} {t[k]:.4f} ({v[0]:.4f}, {v[1]:.4f})"
+                  for k, v in ms.items())
+              + f"; {filled} of {B} problems hold a keyframe, {pairs} "
+              + "pairs pass the validity gate (radius 1e9); "
+              + "bounds " + ", ".join(
+                  f"{k} {r['bound_ms']:.4f} ms ({r['bound_by']}, share "
+                  f"{r['share_of_bound']:.3f})" for k, r in row.items()))
+    return rows, err
+
+
+def _plaza_config(metric):
+    """tests/test_mono.py's mono_config() with subpixel corners, in the
+    port's classes (that file imports JAX)."""
+    from libviso_torch.config import (
+        DetectorConfig,
+        MatchConfig,
+        PipelineConfig,
+    )
+
+    return PipelineConfig(
+        detector=DetectorConfig(max_features=480, nbinx=8, nbiny=4,
+                                num_slots=512, descriptor_radius=5,
+                                subpixel=True),
+        temporal_match=MatchConfig(radius=60.0, use_ratio=True, ratio=0.9),
+    ).with_metric(metric)
+
+
+def mono_loop_phase():
+    """Phase 13: run_mono_sim3_loop on the two-lap plaza circuit, l2 dense
+    and l1 fused, on the JAX package's draws.  Returns the fused kernel's
+    launches in the l1 run and that run's first candidate search (the
+    store of (Kf, 256, 128))."""
+    import torch
+
+    from libviso_torch.config import MonoConfig
+    from libviso_torch.pipeline import mono_loop as tml
+    from libviso_torch.pipeline.mono import mono_hypotheses
+    from libviso_torch.synthetic_world import generate_plaza_sequence
+    from tools import threefry as tf
+    from libviso_torch.utils.metrics import ate_rmse
+
+    t0 = time.perf_counter()
+    seq = generate_plaza_sequence(num_frames=81, seed=5, circuits=2)
+    frames = [f[0] for f in seq.frames]
+    T = len(frames)
+    print(f"[mono-loop] 81-frame two-lap plaza of 416x160 rendered in "
+          f"{time.perf_counter() - t0:.1f} s")
+    K = seq.P1[:, :3]
+    h1, h2 = mono_hypotheses(MonoConfig())
+    captured = {}
+    real_factory = tml._build_candidate_matcher
+
+    def matcher_factory(*a, **kw):
+        match_all = real_factory(*a, **kw)
+
+        def recording(*args):
+            captured.setdefault("problem", args)
+            return match_all(*args)
+        return recording
+
+    launches = {}
+    gt = seq.gt_poses
+    tml._build_candidate_matcher = matcher_factory
+    try:
+        for metric, backend in (("l2", "dense"), ("l1", "fused")):
+            cfg = _plaza_config(metric)
+            n = cfg.detector.num_slots
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            res = tml.run_mono_sim3_loop(
+                frames, K, cfg, backend=backend, device="cuda",
+                keyframe_every=4, min_gap=20, seed=0,
+                draws=lambda t: tuple(map(torch.from_numpy, tf.mono_gumbel(
+                    0, t, (h1, n), (h2, n)))),
+                verify_draws=lambda q: torch.from_numpy(
+                    tf.sim3_verify_gumbel(0, q, (128, 256))))
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            counts = read_launches()
+            ref = JAX_MONO_LOOP[metric]
+            solved = int(res.frame_ok.sum())
+            ate_vo = ate_rmse(res.poses_vo, gt, align="sim3")
+            ate_c = ate_rmse(res.poses, gt, align="sim3")
+            bound = max(1.5 * ref["ate_m"], ref["ate_m"] + 0.02)
+            loops = [(le.frame_old, le.frame_new, le.num_inliers)
+                     for le in res.loops]
+            check(solved == T - 1, f"mono loop {metric}: solved "
+                  f"{solved}/{T - 1}")
+            check(ate_c <= bound, f"mono loop {metric}: Sim(3) ATE {ate_c} "
+                  f"m above {bound} m (JAX {ref['ate_m']} m)")
+            check(ate_c <= 1.01 * ate_vo, f"mono loop {metric}: corrected "
+                  f"ATE {ate_c} m above 1.01x the open chain's {ate_vo} m")
+            if metric == "l2":
+                check(len(loops) >= 2 and all(
+                    36 <= b - a <= 44 and n_in >= 20 for a, b, n_in in loops),
+                    f"mono loop l2: loops {loops} (JAX {ref['loops']})")
+                check(float(np.max(res.node_scales)) > 1.3
+                      and float(np.max(res.edge_scale)) > 0.5,
+                      f"mono loop l2: node scale max "
+                      f"{np.max(res.node_scales)}, edge weights "
+                      f"{res.edge_scale.tolist()}")
+            else:
+                name = "fused_gated_two_min"
+                # a query keyframe is searched once some earlier one is
+                # min_gap frames back
+                searches = int((res.kf_frames[1:] - res.kf_frames[0]
+                                >= 20).sum())
+                launches[name] = counts[name]
+                check(counts[name] == 2 * T + searches,
+                      f"mono loop l1 fused: {name} launched {counts[name]} "
+                      f"times, not {2 * T} for the frames + {searches} "
+                      f"candidate searches")
+            print(f"[mono-loop] {metric} {backend}: solved {solved}/{T - 1}, "
+                  f"{len(res.kf_frames)} keyframes; loops (old, new, "
+                  f"inliers) {loops}, scales "
+                  f"{[round(le.s_rel, 4) for le in res.loops]} (JAX "
+                  f"{ref['loops']}, {ref['scales']}); edge weights "
+                  f"{res.edge_scale.tolist()} (JAX {ref['edge_scale']}); node "
+                  f"scale max {float(np.max(res.node_scales)):.4f} (JAX "
+                  f"{ref['node_scale_max']:.4f}); Sim(3) ATE {ate_vo:.4f} m "
+                  f"open chain, {ate_c:.4f} m corrected (JAX "
+                  f"{ref['ate_vo_m']:.4f} / {ref['ate_m']:.4f}, bound "
+                  f"{bound:.4f}); {T / dt:.2f} frames/s"
+                  + (f"; fused_gated_two_min {counts['fused_gated_two_min']}"
+                     f" launches" if backend == "fused" else ""))
+            if metric == "l2":
+                captured.clear()
+    finally:
+        tml._build_candidate_matcher = real_factory
+    q_xy, q_desc, q_valid, kf_xy, kf_desc, kf_valid = captured["problem"]
+    return launches, (q_xy, q_desc, q_valid, kf_xy, kf_desc, kf_valid)
+
+
+def loop_cli_phase():
+    """Phase 14: cli kitti --loop-closure on a mini KITTI tree, cli synth
+    --world-loop and cli mono --sim3-loop, default --device cuda."""
+    try:
+        from PIL import Image
+    except ImportError:
+        print("[loop-cli] PIL does not import here: the CLI runs skipped")
+        return
+    import shutil
+
+    from libviso_torch.synthetic import generate_sequence
+
+    home = os.path.join(ROOT, "build", "chip_smoke_loop")
+    shutil.rmtree(home, ignore_errors=True)
+    seq = generate_sequence(num_frames=6, num_points=500, seed=7, width=416,
+                            height=160)
+    base = os.path.join(home, "sequences", "77")
+    for cam in ("image_0", "image_1"):
+        os.makedirs(os.path.join(base, cam))
+    with open(os.path.join(base, "calib.txt"), "w") as fh:
+        for row, P in (("P0", seq.P1), ("P1", seq.P2)):
+            fh.write(f"{row}: " + " ".join(f"{v:.9e}" for v in P.reshape(-1))
+                     + "\n")
+    for i, pair in enumerate(seq.frames):
+        for cam, im in zip(("image_0", "image_1"), pair):
+            Image.fromarray(im.astype(np.uint8)).save(
+                os.path.join(base, cam, f"{i:06d}.png"))
+    os.makedirs(os.path.join(home, "mono"))
+    for i, pair in enumerate(seq.frames):
+        Image.fromarray(np.asarray(pair[0]).astype(np.uint8)).save(
+            os.path.join(home, "mono", f"{i:06d}.png"))
+    np.savetxt(os.path.join(home, "mono", "K.txt"), seq.P1[:, :3])
+    cli = [sys.executable, "-m", "libviso_torch.cli"]
+    runs = [
+        (["kitti", "smoke", "77", "--kitti-home", home, "--metric", "l1",
+          "--backend", "sweep", "--loop-closure", "--keyframe-every", "2",
+          "--loop-min-gap", "4", "--loop-min-matches", "20",
+          "--loop-min-inliers", "12", "--checkpoint-every", "3"],
+         {"sequence", "frames", "solved", "fps", "poses", "loops",
+          "graph_cost", "health", "device"}),
+        (["synth", "--world-loop", "--frames", "6", "--metric", "l1",
+          "--backend", "fused"],
+         {"frames", "device", "solved", "ate_rmse_m", "rpe_trans_mean_m",
+          "rpe_rot_mean_rad", "fps"}),
+        (["mono", "--image-mask", os.path.join(home, "mono", "%06d.png"),
+          "--calib", os.path.join(home, "mono", "K.txt"), "--sim3-loop",
+          "--kf-every", "2", "--loop-min-gap", "2", "--metric", "l1",
+          "--backend", "fused"],
+         {"frames", "solved", "fps", "poses", "note", "loops", "keyframes",
+          "graph_cost", "device"})]
+    for argv, keys in runs:
+        proc = subprocess.run(cli + argv, cwd=ROOT, capture_output=True,
+                              text=True, timeout=600)
+        check(proc.returncode == 0,
+              f"cli {' '.join(argv)} exited {proc.returncode}:\n{proc.stderr}")
+        out = json.loads(proc.stdout.strip().splitlines()[-1])
+        check(set(out) == keys and out["device"] == "cuda",
+              f"cli {argv[0]}: keys {sorted(out)}")
+        if argv[0] == "kitti":
+            check(out["solved"] == 5 and out["graph_cost"][1]
+                  <= out["graph_cost"][0], f"cli kitti --loop-closure: {out}")
+            check(os.listdir(os.path.join(home, "results", "77", "smoke",
+                                          "checkpoints", "loop")),
+                  "cli kitti --loop-closure wrote no loop checkpoint")
+        elif argv[0] == "mono":
+            check(out["solved"] == 5 and out["keyframes"] == 2,
+                  f"cli mono --sim3-loop: {out}")
+        else:
+            check(out["frames"] == 6, f"cli synth --world-loop: {out}")
+        flags = [a for a in argv[1:] if a.startswith("--")]
+        print(f"[loop-cli] cli {argv[0]} {' '.join(flags)}: "
+              f"{json.dumps(out)}")
+    shutil.rmtree(home)
+
+
 def kernels_line(launches, l1_err, l1_times, serve_launches, fused_err,
                  fused_times, counts):
     """The kernel table: per kernel its main-path launches and, at the
@@ -1167,11 +1796,13 @@ def kernels_line(launches, l1_err, l1_times, serve_launches, fused_err,
     from libviso_torch.ops import fused_matching as fm
 
     def gated(shape):
+        # the same function as the route: the pairs these inputs need
         B, N, D = shape
-        bound, by = two_min_bound(B, N, N, D, B * N * N)
+        c = counts[shape]
+        bound, by = two_min_bound(B, N, N, D, c["pairs"])
         t = fused_times[shape]
         return {"ms": t["fused"], "plain_ms": t["plain"], "library_ms": None,
-                "bound_ms": bound, "bound_by": by}
+                "bound_ms": bound, "bound_by": by, "pairs": c["pairs"]}
 
     def order(shape):
         # read xy and validity, write both permutations and the boxes; at
@@ -1230,7 +1861,7 @@ def kernels_line(launches, l1_err, l1_times, serve_launches, fused_err,
 
 def main():
     t_start = time.perf_counter()
-    name, count = device_phase()
+    device_name, count = device_phase()
     build_phase()
     l1_err, l1_times = kernel_phase()
 
@@ -1250,17 +1881,35 @@ def main():
     mono_launches = mono_phase(seq)
     mono_cli_phase()
 
+    loop_launches, search, _ = loop_phase()
+    mono_loop_launches, mono_search = mono_loop_phase()
+    check(tuple(mono_search[4].shape) == MONO_LOOP_SHAPE,
+          f"the mono loop's store is {tuple(mono_search[4].shape)}, not "
+          f"{MONO_LOOP_SHAPE}")
+    loop_rows, loop_err = loop_kernel_phase({LOOP_SHAPE: search,
+                                             MONO_LOOP_SHAPE: mono_search})
+    loop_cli_phase()
+
     line = kernels_line(launches, l1_err, l1_times, serve_launches,
                         fused_err, fused_times, counts)
     for k in line["kernels"]:
-        k["window_launches"] = window_launches.get(k["name"])
-        k["mono_launches"] = mono_launches[k["name"]]
-        k["shapes"].append({"shape": list(MONO_SHAPE),
-                            **mono_rows[k["name"]]})
+        kernel = k["name"]
+        k["window_launches"] = window_launches.get(kernel)
+        k["mono_launches"] = mono_launches[kernel]
+        k["loop_launches"] = loop_launches[kernel]
+        k["mono_loop_launches"] = mono_loop_launches.get(kernel)
+        k["max_abs_err"] = max(k["max_abs_err"], loop_err[kernel])
+        k["shapes"].append({"shape": list(MONO_SHAPE), **mono_rows[kernel]})
+        k["shapes"].append({"shape": list(LOOP_SHAPE),
+                            "launches": loop_launches[kernel],
+                            **loop_rows[LOOP_SHAPE][kernel]})
+        k["shapes"].append({"shape": list(MONO_LOOP_SHAPE),
+                            "launches": mono_loop_launches.get(kernel),
+                            **loop_rows[MONO_LOOP_SHAPE][kernel]})
     print(f"[time] chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": count}}))
+        "platform": "gpu", "kind": device_name, "count": count}}))
 
 
 if __name__ == "__main__":

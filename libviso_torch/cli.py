@@ -1,15 +1,18 @@
 """Command-line entry points of the PyTorch port (port of ``libviso_tpu/cli.py``).
 
-  python -m libviso_torch.cli synth [--frames N] [--world] [--metric l1|l2]
+  python -m libviso_torch.cli synth [--frames N] [--world | --world-loop]
+      [--metric l1|l2]
   python -m libviso_torch.cli kitti RESULT_SHA SEQ[,SEQ...] [BEGIN END]
       [--kitti-home DIR]        (default $KITTI_HOME)
       [--checkpoint-every N] [--save-debug]
+      [--loop-closure [--keyframe-every N] [--loop-min-gap G] ...]
                                 (several sequences: each in turn)
   python -m libviso_torch.cli serve RESULT_SHA SEQ,SEQ[,...] [--pool N]
       [--begin B] [--end E] [--checkpoint-every N]
                                 (several sequences, one step for all)
   python -m libviso_torch.cli mono [--image-mask MASK] [--calib K.txt]
       [--begin B] [--end E] [--out POSES] [--method 5pt|8pt] ...
+      [--sim3-loop [--kf-every N] [--loop-min-gap G]]
                                 (default $CBT_HOME/img-%04d.jpg from frame 1
                                  and $CBT_HOME/calib.txt)
   python -m libviso_torch.cli eval EST GT [--delta D] [--align A] [--plot P]
@@ -28,10 +31,12 @@ pipeline flags (``--subpixel``, ``--pyramid``, ``--sharpen``,
 ``--sharpen-amount``, ``--sharpen-auto``, ``--nms``, ``--keep-on-failure``,
 ``--chunk``) and the health flags are the JAX CLI's, with its defaults.
 ``mono`` takes the JAX CLI's flags and, like the others, ``--device``,
-``--metric`` and ``--backend``.  Flags of the JAX CLI that the port does
-not run yet (bundle adjustment, loop closure, the mono Sim(3) back-end)
-are recognised and raise NotImplementedError naming the ROADMAP.md item
-that ports them.
+``--metric`` and ``--backend``.  Loop closure (``kitti --loop-closure``,
+``pipeline/loop.py``) and the mono Sim(3) back-end (``mono --sim3-loop``,
+``pipeline/mono_loop.py``) take the JAX CLI's flags and print its JSON
+keys.  Flags of the JAX CLI that the port does not run yet (bundle
+adjustment) are recognised and raise NotImplementedError naming the
+ROADMAP.md item that ports them.
 """
 
 from __future__ import annotations
@@ -43,18 +48,13 @@ import sys
 import time
 
 # (flag, takes a value, ROADMAP.md item that ports it)
-_NOT_PORTED_KITTI = (
-    ("--ba-window", True, "Queue 1 item 12 (windowed BA)"),
-    ("--loop-closure", False, "Queue 1 item 11 (loop closure)"),
-)
-_NOT_PORTED_SYNTH = (
-    ("--world-loop", False, "Queue 1 item 11 (loop closure)"),
-)
-_NOT_PORTED_MONO = (
-    ("--sim3-loop", False, "Queue 1 item 13 (the mono Sim(3) back-end)"),
-    ("--kf-every", True, "Queue 1 item 13 (the mono Sim(3) back-end)"),
-    ("--loop-min-gap", True, "Queue 1 item 13 (the mono Sim(3) back-end)"),
-)
+_BA = "Queue 1 item 12 (windowed BA)"
+_NOT_PORTED_KITTI = tuple(
+    (flag, takes_value, _BA) for flag, takes_value in (
+        ("--ba-window", True), ("--ba-stride", True), ("--ba-prior", True),
+        ("--ba-outlier-px", True), ("--ba-rerank-px", True),
+        ("--ba-no-gate", False), ("--ba-holdout", True),
+        ("--ba-gate-margin", True), ("--ba-min-cam-obs", True)))
 
 
 def _add_not_ported(parser, entries):
@@ -209,6 +209,11 @@ def _cmd_kitti(args):
     from libviso_torch.pipeline.stereo import run_stereo_sequence
 
     _reject_not_ported(args, _NOT_PORTED_KITTI)
+    if args.loop_closure:
+        if "," in args.seq:
+            sys.exit("--loop-closure takes one sequence")
+        _kitti_loop(args)
+        return
     if "," in args.seq:
         # several sequences: each in turn, one JSON line each
         import copy
@@ -246,6 +251,53 @@ def _cmd_kitti(args):
         "solved": out["solved"],
         "fps": res.processed / dt if dt > 0 else None,
         "poses": out["poses"], "health": out["health"],
+    }))
+
+
+def _kitti_loop(args):
+    """``kitti --loop-closure``: streaming VO, revisit detection and the
+    pose graph (``pipeline/loop.py``); loop checkpoints go under
+    checkpoints/loop, apart from the frame-mode ones.  metrics.jsonl gets
+    the per-frame stats and one ``loop_candidate`` row per verification;
+    the output JSON adds ``loops`` and ``graph_cost``."""
+    from libviso_torch.pipeline.loop import run_with_loop_closure
+
+    cfg = _config(args)
+    kitti_home = args.kitti_home or os.environ.get("KITTI_HOME")
+    if not kitti_home:
+        sys.exit("KITTI_HOME not set (flag --kitti-home or env)")
+    stream, P1, P2 = _open_sequence(kitti_home, args.seq, args.begin,
+                                    args.end)
+    result_dir = os.path.join(kitti_home, "results", args.seq,
+                              args.result_sha)
+    t0 = time.perf_counter()
+    res = run_with_loop_closure(
+        stream, P1, P2, cfg, keyframe_every=args.keyframe_every,
+        min_gap=args.loop_min_gap, min_matches=args.loop_min_matches,
+        min_inliers=args.loop_min_inliers, robust=args.loop_robust,
+        eviction=args.loop_eviction, seed=args.seed, backend=args.backend,
+        device=args.device,
+        checkpoint=_checkpoint_manager(
+            os.path.join(result_dir, "checkpoints", "loop"),
+            args.checkpoint_every),
+        fingerprint_scope=f"{args.seq}:{args.begin}:{args.end}",
+        dbg_dir=os.path.join(result_dir, "dbg") if args.save_debug else None)
+    dt = time.perf_counter() - t0
+    # every verification attempt, accepted or not (threshold tuning needs
+    # the rejected ones)
+    res.stats = res.stats + [{"loop_candidate": c} for c in res.candidates]
+    out = _write_results(kitti_home, args.result_sha, args.seq, res,
+                         _health_cfg(args))
+    print(json.dumps({
+        "sequence": args.seq, "frames": len(res.poses),
+        "device": args.device, "solved": out["solved"],
+        "fps": res.processed / dt if dt > 0 else None,
+        "poses": out["poses"],
+        "loops": [{"new": le.frame_new, "old": le.frame_old,
+                   "inliers": le.num_inliers,
+                   "edge_scale": float(res.loop_edge_scale[i])}
+                  for i, le in enumerate(res.loops)],
+        "graph_cost": list(res.graph_cost), "health": out["health"],
     }))
 
 
@@ -398,9 +450,12 @@ def _cmd_synth(args):
     from libviso_torch.pipeline.stereo import run_stereo_sequence
     from libviso_torch.utils.metrics import ate_rmse, rpe_errors
 
-    _reject_not_ported(args, _NOT_PORTED_SYNTH)
     cfg = _config(args)
-    if args.world:
+    if args.world_loop:
+        from libviso_torch.synthetic_world import generate_plaza_sequence
+
+        seq = generate_plaza_sequence(num_frames=args.frames, seed=args.seed)
+    elif args.world:
         from libviso_torch.synthetic_world import generate_world_sequence
 
         seq = generate_world_sequence(num_frames=args.frames, seed=args.seed)
@@ -437,7 +492,6 @@ def _cmd_mono(args):
     from libviso_torch.io.kitti import MonoImageStream, save_poses_kitti
     from libviso_torch.pipeline.mono import run_mono_sequence
 
-    _reject_not_ported(args, _NOT_PORTED_MONO)
     cbt_home = os.environ.get("CBT_HOME")
     if args.image_mask is None:
         if not cbt_home:
@@ -473,9 +527,24 @@ def _cmd_mono(args):
     stream = MonoImageStream(args.image_mask, begin=args.begin, end=args.end)
 
     t0 = time.perf_counter()
-    res = run_mono_sequence(stream, K, cfg, seed=args.seed,
-                            device=args.device, backend=args.backend,
-                            mono=mono)
+    summary = {}
+    if args.sim3_loop:
+        from libviso_torch.pipeline.mono_loop import run_mono_sim3_loop
+
+        res = run_mono_sim3_loop(stream, K, cfg, mono=mono, seed=args.seed,
+                                 backend=args.backend, device=args.device,
+                                 keyframe_every=args.kf_every,
+                                 min_gap=args.loop_min_gap)
+        summary = {
+            "loops": [{"frame_old": le.frame_old, "frame_new": le.frame_new,
+                       "inliers": le.num_inliers,
+                       "scale": round(le.s_rel, 4)} for le in res.loops],
+            "keyframes": len(res.kf_frames),
+            "graph_cost": [round(c, 6) for c in res.graph_cost]}
+    else:
+        res = run_mono_sequence(stream, K, cfg, seed=args.seed,
+                                device=args.device, backend=args.backend,
+                                mono=mono)
     dt = time.perf_counter() - t0
     if args.out:
         save_poses_kitti(args.out, res.poses)
@@ -489,6 +558,7 @@ def _cmd_mono(args):
                  "(relative scale propagated through shared landmarks)"
                  if mono.scale_propagation else
                  "monocular poses are scale-ambiguous (unit-norm steps)"),
+        **summary,
     }))
 
 
@@ -551,6 +621,26 @@ def main(argv=None):
     k.add_argument("--save-debug", action="store_true",
                    help="write per-frame debug artifacts under "
                         "results/.../dbg")
+    k.add_argument("--loop-closure", action="store_true",
+                   help="detect revisits and remove accumulated drift with "
+                        "pose-graph optimization (one sequence)")
+    k.add_argument("--keyframe-every", type=int, default=5,
+                   help="loop closure: store a keyframe every N frames")
+    k.add_argument("--loop-min-gap", type=int, default=20,
+                   help="loop closure: min frame separation for a revisit "
+                        "candidate")
+    k.add_argument("--loop-min-matches", type=int, default=60,
+                   help="loop closure: appearance-match count gate (above "
+                        "the aliasing floor)")
+    k.add_argument("--loop-min-inliers", type=int, default=30,
+                   help="loop closure: refined-verification inlier gate")
+    k.add_argument("--loop-robust", default="cauchy",
+                   choices=["cauchy", "huber", "none"],
+                   help="pose-graph robust kernel on loop edges")
+    k.add_argument("--loop-eviction", default="spatial",
+                   choices=["spatial", "fifo"],
+                   help="full keyframe store: 'spatial' keeps a coverage of "
+                        "the trajectory, 'fifo' overwrites the oldest")
     _add_common_flags(k)
     _add_health_flags(k)
     _add_not_ported(k, _NOT_PORTED_KITTI)
@@ -562,8 +652,10 @@ def main(argv=None):
                    help="drive the textured-world renderer instead of the "
                         "sprite oracle: dense perspective-correct street "
                         "frames (slower to render, photograph-like)")
+    s.add_argument("--world-loop", action="store_true",
+                   help="closed-circuit plaza drive through the world "
+                        "renderer (the loop-closure oracle)")
     _add_common_flags(s)
-    _add_not_ported(s, _NOT_PORTED_SYNTH)
     s.set_defaults(fn=_cmd_synth)
 
     v = sub.add_parser("serve", help="several KITTI sequences, one step "
@@ -625,7 +717,14 @@ def main(argv=None):
     m.add_argument("--keep-on-failure", action="store_true",
                    help="transient-dropout recovery: hold the last good "
                         "frame's features across a failed solve")
-    _add_not_ported(m, _NOT_PORTED_MONO)
+    m.add_argument("--sim3-loop", action="store_true",
+                   help="scale-drift-aware loop closure: Sim(3) pose graph "
+                        "over keyframe nodes with landmark-cloud Umeyama "
+                        "loop edges")
+    m.add_argument("--kf-every", type=int, default=4,
+                   help="keyframe cadence in frames for --sim3-loop")
+    m.add_argument("--loop-min-gap", type=int, default=20,
+                   help="min frame separation for a loop candidate")
     m.set_defaults(fn=_cmd_mono)
 
     e = sub.add_parser("eval", help="ATE/RPE + KITTI devkit-style errors "

@@ -80,7 +80,6 @@ constexpr int kMaxSplit = 4;             // CTAs per cluster, along windows
 constexpr int kCTAsPerSM = 2;            // the grid the split aims to fill
 constexpr int kStages = 2;               // slices in flight
 constexpr int kBatch = 4;                // windows staged at once
-constexpr int kMaxSlots = 8192;          // sweep_order.cu's limit
 constexpr int kTX = kCols / 8;           // threads along a row
 constexpr int kSliceF4 = kCols * l1tile::kPitch;
 using two_min::kBig;
@@ -427,8 +426,9 @@ extern "C" int fused_sweep_plan(int B, int N1, int* rows, int* split) {
 // (B, 4, ceil(N1 / 32)) and tbox (B, 4, ceil(N2 / box)) the boxes of the
 // sorted runs (sweep_order.cu); outputs best, second (B, N1) f32 and idx
 // (B, N1) int32 at the query slots, idx a target slot.  All contiguous on
-// the device; descriptors 16-byte aligned, D a multiple of 4, N2 at most
-// kMaxSlots.  Launches a grid of clusters on `stream` and returns the
+// the device; descriptors 16-byte aligned, D a multiple of 4; N1 and N2
+// any size (above sweep_order.cu's limit the order comes from another
+// sort).  Launches a grid of clusters on `stream` and returns the
 // cudaError_t of the launch (0 on success), a refused cluster or
 // shared-memory size included; does not synchronise.
 extern "C" int fused_sweep_two_min_launch(
@@ -438,7 +438,6 @@ extern "C" int fused_sweep_two_min_launch(
     const int* tperm, const float* qbox, const float* tbox, float* best,
     float* second, int* idx, int B, int N1, int N2, int D, float radius,
     float sampson_thresh, void* stream) {
-  if (N2 > kMaxSlots) return static_cast<int>(cudaErrorInvalidValue);
   int sms = 0, rows = 0, split = 0;
   cudaError_t err = sm_count(&sms);
   if (err == cudaSuccess) {

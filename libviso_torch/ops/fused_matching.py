@@ -52,7 +52,9 @@ _TINY = 1e-30     # Sampson denominator floor
 # or two query boxes (``sweep_plan``)
 SWEEP_TILING = (32, 16)
 SWEEP_WINDOW = 128
-# the most slots a side the order kernel sorts (one CTA, csrc/sweep_order.cu)
+# the most slots a side one CTA of the order kernel sorts
+# (csrc/sweep_order.cu); above it the order takes three launches and a
+# scratch buffer of keys
 MAX_SWEEP_SLOTS = 8192
 _fns = {}
 
@@ -120,7 +122,7 @@ def _library():
         gated.argtypes = [ptr] * 11 + [i32] * 4 + [f32, f32, ptr]
         gated.restype = i32
         order = lib.sweep_order_launch
-        order.argtypes = [ptr] * 8 + [i32] * 6 + [ptr]
+        order.argtypes = [ptr] * 9 + [i32] * 6 + [ptr]
         order.restype = i32
         sweep = lib.fused_sweep_two_min_launch
         sweep.argtypes = [ptr] * 15 + [i32] * 4 + [f32, f32, ptr]
@@ -184,13 +186,6 @@ def _check(q_xy, q_valid, q_d, t_xy, t_valid, t_d, F, use_epi):
     if q_d.data_ptr() % 16 or t_d.data_ptr() % 16:
         raise ValueError("fused kernels need 16-byte aligned descriptors")
     return B, N1, N2, D
-
-
-def _check_slots(N1, N2):
-    if max(N1, N2) > MAX_SWEEP_SLOTS:
-        raise ValueError(f"the sweep route sorts at most {MAX_SWEEP_SLOTS} "
-                         f"slots a side (one CTA of the order kernel); got "
-                         f"N1={N1}, N2={N2}")
 
 
 def _outputs(B, N1, device):
@@ -280,9 +275,11 @@ def _boxes(xy, valid, block):
 
 def sweep_order_plain(q_xy, q_valid, t_xy, t_valid, sort=True,
                       tiling=SWEEP_TILING):
-    """The plain version of the order kernel; see ``sweep_order``.
-    ``tiling`` is the (rows, box) the boxes cover."""
-    _check_slots(q_valid.shape[-1], t_valid.shape[-1])
+    """The plain version of the order kernel (see ``sweep_order``), on
+    the device of the inputs: stable ``torch.argsort`` of the keys (x,
+    +1e6 for an invalid query, -1e6 for an invalid target; ties in slot
+    order), then the boxes of the sorted runs at ``tiling``, the (rows,
+    box) they cover."""
 
     def order(xy, valid, invalid_x):
         if not sort:
@@ -309,8 +306,12 @@ def _order_launch(q_xy, q_valid, t_xy, t_valid, sort, B, N1, N2):
                        device=dev),
            torch.empty((B, 4, -(-N2 // box)), dtype=torch.float32,
                        device=dev))
-    _run("order", (q_xy, q_valid, t_xy, t_valid, *out, B, N1, N2, rows, box,
-                   int(sort)), dev)
+    scratch = None
+    if max(N1, N2) > MAX_SWEEP_SLOTS:
+        scratch = torch.empty((B, 2, max(N1, N2)), dtype=torch.int64,
+                              device=dev)
+    _run("order", (q_xy, q_valid, t_xy, t_valid, *out, scratch, B, N1, N2,
+                   rows, box, int(sort)), dev)
     launches["sweep_order"] += 1
     return out
 
@@ -324,9 +325,10 @@ def sweep_order(q_xy, q_valid, t_xy, t_valid, sort=True):
     are x, or +1e6 for an invalid query and -1e6 for an invalid target;
     ties keep slot order.  With
     ``sort`` False the permutations are the identity (slots already in
-    order).  At most ``MAX_SWEEP_SLOTS`` slots a side; more raise
-    ValueError.  CPU tensors take the plain version, CUDA tensors the order
-    kernel."""
+    order).  Any slot count: up to ``MAX_SWEEP_SLOTS`` a side one CTA of
+    the order kernel sorts a side, above it each CTA a chunk and two more
+    launches merge them and box.  CPU tensors take the plain version, CUDA
+    tensors the order kernel."""
     if not _device_route(q_valid):
         return sweep_order_plain(q_xy, q_valid, t_xy, t_valid, sort)
     _check_tensors(q_valid.device, {"q_xy": q_xy, "t_xy": t_xy},
@@ -336,7 +338,6 @@ def sweep_order(q_xy, q_valid, t_xy, t_valid, sort=True):
     _check_shapes({"q_xy": q_xy, "t_xy": t_xy, "t_valid": t_valid},
                   {"q_xy": (B, N1, 2), "t_xy": (B, N2, 2),
                    "t_valid": (B, N2)})
-    _check_slots(N1, N2)
     if B > 65535:
         raise ValueError(f"the order kernel takes at most 65535 problems, "
                          f"got {B}")
@@ -432,7 +433,6 @@ def swept_two_min(q_xy, q_valid, q_d, t_xy, t_valid, t_d, F, use_epi,
                               sampson_thresh, radius)
     B, N1, N2, D = _check(q_xy, q_valid, q_d, t_xy, t_valid, t_d, F,
                           use_epi)
-    _check_slots(N1, N2)
     rows, box = SWEEP_TILING
     for name, x, shape, dtype in (
             ("qperm", qperm, (B, N1), torch.int32),
@@ -452,10 +452,10 @@ def swept_two_min(q_xy, q_valid, q_d, t_xy, t_valid, t_d, F, use_epi,
 
 def _sweep_route(q_xy, q_valid, q_d, t_xy, t_valid, t_d, F, use_epi,
                  sampson_thresh, radius, sort):
-    """The order kernel, then the sweep kernel: two launches."""
+    """The order kernel, then the sweep kernel: two launches (four above
+    ``MAX_SWEEP_SLOTS`` slots a side, where the order takes three)."""
     B, N1, N2, D = _check(q_xy, q_valid, q_d, t_xy, t_valid, t_d, F,
                           use_epi)
-    _check_slots(N1, N2)
     if B * N1 == 0:
         return _outputs(B, N1, q_d.device)
     order = _order_launch(q_xy, q_valid, t_xy, t_valid, sort, B, N1, N2)
@@ -485,9 +485,9 @@ def sorted_fused_two_min(q_xy, q_valid, q_d, t_xy, t_valid, t_d, F, use_epi,
     sorted by x (``sweep_order``), the result at the original slots (idx
     into the original target slots).  Among equal distances the lowest
     x-sorted target wins.  On CUDA tensors: the order kernel and the sweep
-    kernel, two launches.  ``sweep`` replaces the sweep (the plain version
-    on the card, for comparison): the sides are then sorted by
-    ``sweep_order_plain``, gathered, swept and mapped back."""
+    kernel.  ``sweep`` replaces the sweep (the plain version on the card,
+    for comparison): the sides are then sorted by ``torch.argsort``,
+    gathered, swept and mapped back.  Any slot count."""
     if sweep is None:
         if _device_route(q_d):
             return _sweep_route(q_xy, q_valid, q_d, t_xy, t_valid, t_d, F,

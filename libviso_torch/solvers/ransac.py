@@ -47,11 +47,13 @@ def sample_gumbel(shape, generator: torch.Generator, dtype=torch.float32):
     return -torch.log(-torch.log(u))
 
 
-def frame_generator(seed: int, t: int) -> torch.Generator:
+def frame_generator(seed: int, t: int, *more: int) -> torch.Generator:
     """A CPU generator seeded from (seed, frame): frame t's draws do not
     depend on which frames ran before, and the CPU and the card see the
-    same draws."""
-    state = np.random.SeedSequence([seed, t]).generate_state(2, np.uint32)
+    same draws.  ``more`` extends the index (a draw that is not a
+    frame's, e.g. (seed, 1_000_003, keyframe))."""
+    state = np.random.SeedSequence([seed, t, *more]).generate_state(
+        2, np.uint32)
     return torch.Generator().manual_seed(
         (int(state[0]) << 31) ^ int(state[1]))
 

@@ -3,7 +3,8 @@ gated matcher, and the sweep's order and sweep kernels) against their
 plain versions, and the pipeline and multi-stream serving on the card
 against the CPU and the solo runs, and the mono path on the card: the
 5-point solver's batch invariance and the three matcher routes on the same
-draws.
+draws; loop closure on the card: the three routes give one
+``LoopEngine.offer`` result, and a loop-mode resume is bit-exact.
 
 Every test is marked ``cuda`` and skips without a card.  The file imports
 no JAX, so it runs on a machine that has none; the suite's conftest.py
@@ -69,6 +70,8 @@ def _pair(shape1, shape2, integer, seed=0):
     (((1, 5, 4), (1, 3, 4)), True),
     (((1, 1536, 384), (1, 1536, 384)), True),     # a mono match problem
     (((1, 1536, 384), (1, 1536, 384)), False),
+    (((128, 256, 128), (128, 256, 128)), True),   # the loop store
+    (((20, 256, 128), (20, 256, 128)), True),     # the mono loop's store
 ])
 def test_kernel_matches_plain(shapes, integer):
     require_cuda()
@@ -165,7 +168,10 @@ FUSED = [("fused_gated_two_min", fm.fused_gated_two_min, None),
                                    (2, 1000, 777, 128), (3, 1280, 1280, 124),
                                    (1, 5, 3, 4),
                                    (1, 1536, 1536, 384),   # mono's
-                                   (2, 1536, 1536, 384)])
+                                   (2, 1536, 1536, 384),
+                                   (128, 256, 256, 128),   # the loop store
+                                   (20, 256, 256, 128),    # the mono loop's
+                                   (1, 256, 256, 128)])    # a guided match
 def test_fused_kernels_match_plain_bitwise(kernel, shape):
     require_cuda()
     name, fn, plain_sweep = kernel
@@ -316,13 +322,51 @@ def test_sweep_raises_on_a_refused_launch():
     assert fm.launches["fused_sweep_two_min"] == before
 
 
-def test_sweep_route_rejects_more_slots_than_the_order_kernel_sorts():
+@pytest.mark.parametrize("n1,n2,sort", [
+    (fm.MAX_SWEEP_SLOTS + 1, 64, True), (9000, 9000, True),
+    (20000, 3000, True), (20000, 17000, False)])
+def test_order_kernel_above_one_cta(n1, n2, sort):
+    """Above MAX_SWEEP_SLOTS slots a side the order kernel sorts chunks in
+    CTAs and merges them (three launches, one count): bitwise its plain
+    version, with many equal x, invalid slots and NaN coordinates."""
     require_cuda()
-    args = _match_problem(1, 64, fm.MAX_SWEEP_SLOTS + 1, 4)
+    g = torch.Generator(device="cuda").manual_seed(n1 + n2)
+
+    def side(n):
+        xy = torch.randint(0, 64, (2, n, 2), generator=g,
+                           device="cuda").float()
+        xy[:, ::97] = float("nan")
+        valid = torch.rand((2, n), generator=g, device="cuda") > 0.2
+        return xy, valid
+
+    sides = (*side(n1), *side(n2))
+    before = fm.launches["sweep_order"]
+    got = fm.sweep_order(*sides, sort=sort)
+    assert fm.launches["sweep_order"] == before + 1
+    want = fm.sweep_order_plain(*sides, sort=sort)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("shape", [(1, 9000, 9000, 128),
+                                   (2, 1280, 8300, 128)])
+def test_sweep_route_above_the_order_kernel_limit(shape):
+    """Above MAX_SWEEP_SLOTS slots a side the route is the same two
+    kernels, the order kernel merging sorted chunks: bitwise its plain
+    version."""
+    require_cuda()
+    args = _match_problem(*shape)
     before = dict(fm.launches)
-    with pytest.raises(ValueError, match=str(fm.MAX_SWEEP_SLOTS)):
-        fm.sorted_fused_two_min(*args, 1.0, 80.0)
-    assert fm.launches == before
+    got = fm.sorted_fused_two_min(*args, 1.0, 80.0)
+    torch.cuda.synchronize()
+    assert fm.launches["fused_sweep_two_min"] == \
+        before["fused_sweep_two_min"] + 1
+    assert fm.launches["sweep_order"] == before["sweep_order"] + 1
+    want = fm.sorted_fused_two_min(*args, 1.0, 80.0,
+                                   sweep=fm.fused_sweep_two_min_plain)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+    assert torch.isfinite(got[0]).float().mean() > 0.5
 
 
 def test_fused_kernels_reject_what_they_do_not_take():
@@ -511,3 +555,104 @@ def test_mono_backends_agree_and_launch_twice_a_frame():
     c = ate_rmse(cpu.poses, seq.gt_poses, align="sim3")
     assert ate_rmse(gpu.poses, seq.gt_poses, align="sim3") <= max(1.5 * c,
                                                                   c + 0.02)
+
+
+def _loop_circle():
+    """tests/test_loop_closure.py's 48-frame circle (416x160) and its
+    tiny_config() in the port's classes."""
+    from libviso_torch.config import DetectorConfig, RansacConfig
+
+    T = 48
+    yaw = 2 * np.pi / (T - 1)
+    steps = np.zeros((T, 6))
+    steps[1:] = [0.0, yaw, 0.0, 0.0, 0.0, 2 * 10.0 * np.sin(yaw / 2)]
+    seq = generate_sequence(num_frames=T, num_points=1400, seed=3,
+                            width=416, height=160, trajectory=steps)
+    cfg = PipelineConfig(
+        detector=DetectorConfig(max_features=240, nbinx=8, nbiny=3,
+                                num_slots=256),
+        ransac=RansacConfig(num_hypotheses=32, gn_iters=50))
+    return seq, cfg
+
+
+LOOP_KW = dict(keyframe_every=4, min_gap=24, min_matches=40, min_inliers=20,
+               seed=0)
+
+
+def test_loop_engine_backends_agree_on_the_card():
+    """One store (the keyframes of frames 0-40 of the circle under metric
+    l1) and one offer of frame 44's keyframe under each matcher route: the
+    same candidate list and loop edge, one launch of the route's kernels
+    for the candidate search and one for each guided match."""
+    require_cuda()
+    from libviso_torch.pipeline import loop as tl
+    from libviso_torch.pipeline.stereo import build_frame_step, empty_state
+
+    seq, cfg = _loop_circle()
+    cfg = cfg.with_metric("l1")
+    calib = Calib.from_projections(seq.P1, seq.P2)
+    F = torch.as_tensor(F_from_P_host(seq.P1, seq.P2), dtype=torch.float32,
+                        device="cuda")
+    step = build_frame_step(calib, F, cfg)
+    summarize = tl._build_summarize(256, cfg.detector.descriptor_dim, True)
+    state = empty_state(cfg, "cuda")
+    shape = (cfg.ransac.num_hypotheses, cfg.detector.num_slots)
+    keyframes = {}
+    for t in range(45):
+        state, _ = step(state, *(torch.tensor(im, device="cuda")
+                                 for im in seq.frames[t]),
+                        sample_gumbel(shape, frame_generator(0, t)).cuda())
+        if t % 4 == 0:
+            keyframes[t] = summarize(state)
+    counters = {"dense": ["l1"], "fused": ["fused_gated_two_min"],
+                "sweep": ["sweep_order", "fused_sweep_two_min"]}
+    results = {}
+    for backend, names in counters.items():
+        eng = tl.LoopEngine(cfg, calib, 0, device="cuda", backend=backend,
+                            **{k: v for k, v in LOOP_KW.items()
+                               if k != "seed"})
+        for t in range(0, 44, 4):
+            eng.offer(t, *keyframes[t], lambda: np.zeros(3, np.float32))
+        before = {n: cm.launches if n == "l1" else fm.launches[n]
+                  for n in names}
+        eng.offer(44, *keyframes[44], lambda: np.zeros(3, np.float32))
+        torch.cuda.synchronize()
+        calls = 1 + sum(len(c.get("refine_trace", ())) + (
+            1 if len(c.get("refine_trace", ())) == 2 else 0)
+            for c in eng.candidates if c["frame_new"] == 44)
+        for n in names:
+            now = cm.launches if n == "l1" else fm.launches[n]
+            assert now - before[n] == calls, (backend, n)
+        results[backend] = (
+            [{k: c[k] for k in ("frame_new", "frame_old", "score", "ok",
+                                "num_inliers", "refined_inliers")}
+             for c in eng.candidates],
+            [(le.frame_new, le.frame_old, le.num_inliers, le.tr.tolist())
+             for le in eng.loops])
+    assert results["fused"] == results["dense"] == results["sweep"]
+    assert results["dense"][1] and results["dense"][1][0][:2] == (44, 0)
+
+
+def test_loop_resume_on_the_card_equals_the_uninterrupted_run(tmp_path):
+    """The 48-frame circle in loop mode on the card, cut at frame 30 by a
+    checkpoint and resumed: the uninterrupted run's loops, stats and poses
+    bit for bit."""
+    require_cuda()
+    from libviso_torch.pipeline.loop import run_with_loop_closure
+    from libviso_torch.utils.checkpoint import CheckpointManager
+
+    seq, cfg = _loop_circle()
+    frames = list(seq.frames)
+    run = lambda frames, **kw: run_with_loop_closure(  # noqa: E731
+        frames, seq.P1, seq.P2, cfg, device="cuda", **LOOP_KW, **kw)
+    want = run(frames)
+    assert want.loops
+    mgr = CheckpointManager(str(tmp_path), every=20)
+    run(frames[:30], checkpoint=mgr)
+    got = run(frames, checkpoint=mgr)
+    assert got.processed == len(frames) - 30
+    assert got.stats == want.stats and got.candidates == want.candidates
+    assert [(le.frame_new, le.frame_old, le.num_inliers) for le in got.loops] \
+        == [(le.frame_new, le.frame_old, le.num_inliers) for le in want.loops]
+    np.testing.assert_array_equal(got.poses, want.poses)
+    assert got.graph_cost == want.graph_cost

@@ -316,15 +316,50 @@ def test_order_boxes_equal_a_numpy_reference(rng):
     assert np.isinf(to_np(out[3][0])).any(0).sum() >= 1
 
 
-def test_slot_count_above_the_order_limit_raises():
-    n = fm.MAX_SWEEP_SLOTS + 1
-    xy, valid = torch.zeros(1, n, 2), torch.ones(1, n, dtype=torch.bool)
-    d = torch.zeros(1, n, 4)
-    with pytest.raises(ValueError, match=str(fm.MAX_SWEEP_SLOTS)):
-        fm.sweep_order(xy, valid, xy[:, :5], valid[:, :5])
-    with pytest.raises(ValueError, match=str(fm.MAX_SWEEP_SLOTS)):
-        fm.sorted_fused_two_min(xy[:, :5], valid[:, :5], d[:, :5], xy, valid,
-                                d, torch.eye(3)[None], torch.tensor([False]))
+def test_order_plain_above_one_cta_of_the_kernel():
+    """Above MAX_SWEEP_SLOTS slots a side (one CTA of the order kernel) the
+    plain order is the same stable sort of the keys: slots by (key, slot)
+    with invalid queries keyed +1e6 and invalid targets -1e6, ties (equal
+    x) in slot order."""
+    rng = np.random.default_rng(8193)
+    n = fm.MAX_SWEEP_SLOTS + 100
+    xy = rng.integers(0, 50, (1, n, 2)).astype(np.float32)  # many ties
+    valid = rng.random((1, n)) > 0.2
+    qperm, tperm, qbox, tbox = fm.sweep_order_plain(
+        to_torch(xy), to_torch(valid), to_torch(xy), to_torch(valid))
+    for perm, key in ((qperm, 1e6), (tperm, -1e6)):
+        keys = np.where(valid[0], xy[0, :, 0], np.float32(key))
+        np.testing.assert_array_equal(to_np(perm[0]),
+                                      np.lexsort((np.arange(n), keys)))
+    assert qbox.shape == (1, 4, -(-n // fm.SWEEP_TILING[0]))
+    assert tbox.shape == (1, 4, -(-n // fm.SWEEP_TILING[1]))
+
+
+@pytest.mark.parametrize("use_epi", [False, True])
+def test_sweep_route_above_the_order_limit(use_epi):
+    """8200 target slots, above one CTA of the order kernel: the route
+    equals the dense plain version on best and second, and on idx
+    except where two targets are at exactly the same distance (where the
+    lowest x-sorted target wins instead of the lowest slot)."""
+    rng = np.random.default_rng(8200)
+    n1, n2, d = 300, fm.MAX_SWEEP_SLOTS + 8, 4
+    q_xy = rng.uniform(0, [1200, 370], (1, n1, 2)).astype(np.float32)
+    t_xy = rng.uniform(0, [1200, 370], (1, n2, 2)).astype(np.float32)
+    q_valid, t_valid = rng.random((1, n1)) > 0.1, rng.random((1, n2)) > 0.1
+    q_d = rng.integers(0, 6, (1, n1, d)).astype(np.float32)
+    t_d = rng.integers(0, 6, (1, n2, d)).astype(np.float32)
+    F = np.asarray([[0, 0, 0], [0, 0, -1], [0, 1, 0]], np.float32)[None]
+    args = [to_torch(x) for x in (q_xy, q_valid, q_d, t_xy, t_valid, t_d, F)]
+    args.append(torch.tensor([use_epi]))
+    got = fm.sorted_fused_two_min(*args, 1.0, 80.0)
+    want = fm.fused_gated_two_min_plain(*args, 1.0, 80.0)
+    np.testing.assert_array_equal(to_np(got[0]), to_np(want[0]))
+    np.testing.assert_array_equal(to_np(got[1]), to_np(want[1]))
+    differ = to_np(got[2] != want[2])[0]
+    assert to_np(torch.isfinite(want[0])).sum() > 100
+    # the rows where idx differs are exact ties: second == best
+    np.testing.assert_array_equal(to_np(want[1])[0][differ],
+                                  to_np(want[0])[0][differ])
 
 
 def test_sweep_skip_is_exact(rng):

@@ -4,9 +4,8 @@ A folder of generated frames (tests/test_mono.py's sequence, PNG) and its
 K: the subcommand prints the JAX CLI's JSON keys (libviso_tpu/cli.py,
 ``_cmd_mono``: frames, solved, fps, poses, note) and the port's
 ``device``, and writes the KITTI-format poses.  The reference's CBT_HOME
-contract and a 3x4 calibration file are read as the JAX CLI reads them;
-the Sim(3) back-end's flags raise, naming the ROADMAP.md item that ports
-them.  The full-width mono configuration runs at about a second a frame
+contract and a 3x4 calibration file are read as the JAX CLI reads them
+(the Sim(3) back-end's flags: tests/test_torch_loop_cli.py).  The full-width mono configuration runs at about a second a frame
 on one CPU core, so the runs are 3 frames long.
 """
 
@@ -59,15 +58,6 @@ def test_cli_mono_cbt_home_contract(folder, capsys, monkeypatch):
     out = _mono(capsys, "--no-scale", "--method", "8pt")
     assert out["frames"] == 3 and out["solved"] == 2
     assert out["poses"] is None and "scale-ambiguous" in out["note"]
-
-
-@pytest.mark.parametrize("argv", [["--sim3-loop"], ["--kf-every", "2"],
-                                  ["--loop-min-gap", "5"]])
-def test_cli_mono_sim3_flags_raise(folder, argv):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-        cli.main(["mono", "--device", "cpu", "--image-mask",
-                  str(folder / "%06d.png"), "--calib", str(folder / "K.txt"),
-                  *argv])
 
 
 def test_cli_mono_needs_images_and_calibration(monkeypatch):

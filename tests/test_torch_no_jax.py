@@ -34,7 +34,10 @@ def test_package_has_sources():
             "ops/fused_matching.py", "ops/pyramid.py", "synthetic_world.py",
             "utils/checkpoint.py", "utils/debug_viz.py", "pipeline/mono.py",
             "geometry/essential.py", "geometry/five_point.py",
-            "utils/stats.py"} <= names
+            "utils/stats.py", "geometry/sim3.py", "geometry/procrustes.py",
+            "solvers/pose_graph.py", "solvers/pose_graph_sim3.py",
+            "ops/structural.py", "pipeline/loop.py",
+            "pipeline/mono_loop.py"} <= names
 
 
 @pytest.mark.parametrize("path", SOURCES,
@@ -46,7 +49,9 @@ def test_no_jax_import(path):
 
 
 @pytest.mark.parametrize("name", ["chip_smoke.py",
-                                  "tests/test_torch_cuda.py"])
+                                  "tests/test_torch_cuda.py",
+                                  "tools/soak_torch.py",
+                                  "tools/threefry.py"])
 def test_card_side_scripts_import_no_jax(name):
     """What runs on the card's machine, which has no JAX."""
     bad = [m for m in _imported_modules(PKG.parent / name)

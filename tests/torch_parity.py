@@ -55,3 +55,32 @@ def jax_null_basis(Q):
                                    full_matrices=True)[2])
     basis = vt[..., 5:9, :].reshape(*Q.shape[:-2], 4, 3, 3)[..., ::-1, :, :]
     return torch.from_numpy(np.ascontiguousarray(basis)).to(Q.device)
+
+
+def jax_key_gumbel(key, shape):
+    """``jax.random.gumbel(key, shape)`` as a torch tensor: the draws of a
+    JAX function that samples from its key directly (the 3D-3D RANSACs of
+    ``geometry/procrustes.py``)."""
+    return to_torch(jax.random.gumbel(key, shape, jnp.float32))
+
+
+def jax_loop_verify_gumbel(seed: int, t: int, it, num_hypotheses: int,
+                           num_slots: int):
+    """The draws of a loop verification solve of the JAX ``LoopEngine``
+    for keyframe-cadence frame ``t``: the seed solve (``it`` None) draws
+    under fold_in(key, 1_000_000 + t), refinement round ``it`` under
+    fold_in(key, 2_000_000 + 2 t + it), and ``ransac_pose`` samples that
+    key directly (a frame's step splits its key first)."""
+    index = 1_000_000 + t if it is None else 2_000_000 + 2 * t + it
+    return jax_key_gumbel(jax.random.fold_in(jax.random.PRNGKey(seed), index),
+                          (num_hypotheses, num_slots))
+
+
+def jax_sim3_verify_gumbel(seed: int, q: int, num_hypotheses: int,
+                           num_slots: int):
+    """The draws of the JAX mono loop's Sim(3) verification of query
+    keyframe ``q``: fold_in(fold_in(PRNGKey(seed), 1_000_003), q), sampled
+    directly by ``ransac_similarity``."""
+    key = jax.random.fold_in(
+        jax.random.fold_in(jax.random.PRNGKey(seed), 1_000_003), q)
+    return jax_key_gumbel(key, (num_hypotheses, num_slots))

@@ -155,7 +155,7 @@ def bind(lib, sorted_sweep=False):
     found = []
     for kind, symbol, args in (
             ("l1", "l1_distance_launch", [P, P, P] + [I] * 4 + [P]),
-            ("order", "sweep_order_launch", [P] * 8 + [I] * 6 + [P]),
+            ("order", "sweep_order_launch", [P] * 9 + [I] * 6 + [P]),
             ("gated", "fused_gated_two_min_launch",
              [P] * 11 + [I] * 4 + [F, F, P]),
             ("sorted sweep", "fused_sweep_two_min_launch",
@@ -195,8 +195,8 @@ def launch(kind, fn, pb):
                 torch.empty((B, 4, -(-N2 // box)), device="cuda"))
         rc = fn(*(pb[k].data_ptr() for k in ("q_xy", "q_valid", "t_xy",
                                              "t_valid")),
-                *(x.data_ptr() for x in outs), B, N1, N2, rows, box, 1,
-                stream)
+                *(x.data_ptr() for x in outs), None, B, N1, N2, rows, box,
+                1, stream)
         if rc:
             raise RuntimeError(f"launch failed: cudaError_t {rc}")
         return outs
