@@ -88,7 +88,35 @@ Phases, each of which exits non-zero on failure:
      solved;
  14. entry points: `cli kitti --loop-closure` on a mini KITTI tree, `cli
      synth --world-loop --frames 6` and `cli mono --sim3-loop` on a folder
-     of frames, with the default --device cuda.
+     of frames, with the default --device cuda;
+ 15. windowed bundle adjustment at full width: run_windowed_ba on the
+     phase-4 sequence, metric l1, windows of 8 frames every 4, on the JAX
+     package's window draws (tools/threefry.py), under the acceptance gate
+     with each backend: 19/19 solved, the JAX run's accepted flags (none),
+     so the trajectory is VO's, no window's cost rising, each window's
+     initial and final cost and holdout ratios within rtol 1e-3 of JAX's,
+     the ATE within max(1.5 J, J + 0.02 m) of JAX's J, the three backends
+     bitwise equal on motions and flags, one launch of the backend's
+     kernels a window at each of the two shapes; without the gate (dense)
+     every window accepted, its costs and ratios within rtol 1e-3 of
+     JAX's, and the ATE within the bound of JAX's and below VO's; per
+     window the front-end and refinement ms, and the refinement's device
+     kernels and stream syncs by torch.profiler;
+ 16. the kernels at the BA window's shapes, (8, 1280, 128) and (14, 1280,
+     128): equal to their plain versions on integer descriptors and on the
+     first window's stereo and temporal problems of phase 15, and timed
+     there as in phase 12;
+ 17. the composed BA + loop back-end (run_windowed_ba_loop) on phase 11's
+     circle, sweep, on JAX's window and loop draws: 95/95 solved, the JAX
+     run's 23 window flags and loop pairs with inliers within 10 %, the
+     graph cost falling and within 2x of JAX's, the optimized endpoint no
+     farther than the BA chain's, the optimized ATE within the bound of
+     JAX's, the route's launches counted;
+ 18. entry points: `cli kitti --ba-window 4`, alone and with
+     --loop-closure, on a mini KITTI tree with checkpoints and the default
+     --device cuda (the CLI's main in this process), each resumed from its
+     next-to-last snapshot with the same poses, and --keep-on-failure with
+     --ba-window refused (a non-zero exit).
 
 The line before the last is the kernel table as JSON: per kernel its
 launches on the main path, its time beside its bound (the larger of the
@@ -100,7 +128,11 @@ serving shape (12, 1280, 128), and at the mono shape (1, 1536, 384) with
 its launches in the 20-frame mono run (`mono_launches`), and at the loop
 shapes (128, 256, 128) and (20, 256, 128) with the launches of the loop
 runs (`loop_launches`, phase 11 under the kernel's backend;
-`mono_loop_launches`, phase 13's l1 run).  The sweep's
+`mono_loop_launches`, phase 13's l1 run), and at the BA window's shapes
+(8, 1280, 128) and (14, 1280, 128) with the launches of phase 15's run
+under the kernel's backend (`ba_launches`, two a window; each shape's
+`launches` counted per call of the batched matcher) and of phase 17's
+(`ba_loop_launches`, the sweep's kernels).  The sweep's
 entry is its whole route
 (`ms`: order kernel and sweep kernel, `order_ms` and `sweep_ms` each
 alone, `fused_ms` kernel #2 in the same turns, `route_launches` by
@@ -226,6 +258,80 @@ JAX_MONO_LOOP = {
     "l1": {"solved": 80, "loops": [(16, 36, 15)], "scales": (0.5491794,),
            "edge_scale": (5.19e-06,), "node_scale_max": 1.000009536743164,
            "ate_vo_m": 8.74656725391418, "ate_m": 8.74723717250361}}
+# Phases 15-17: the JAX package's windowed BA, computed on the CPU.  Phase
+# 15, on the phase-4 sequence, under the gate and without it:
+#   python -c "import jax; jax.config.update('jax_platforms', 'cpu')
+#   from libviso_tpu.config import BAConfig, PipelineConfig
+#   from libviso_tpu.pipeline.windowed import run_windowed_ba
+#   from libviso_tpu.synthetic import generate_sequence
+#   from libviso_tpu.utils.metrics import ate_rmse
+#   s = generate_sequence(num_frames=20, num_points=900, seed=0, width=1241,
+#       height=376, f=718.856, base=0.5371657, speed=0.8)
+#   for gate in (True, False):
+#       r = run_windowed_ba(s.frames, s.P1, s.P2,
+#           PipelineConfig().with_metric('l1'),
+#           ba=BAConfig(window=8, stride=4, gate=gate), seed=0)
+#       print(r.frame_ok.sum(), r.window_costs,
+#           ate_rmse(r.poses, s.gt_poses), ate_rmse(r.poses_vo, s.gt_poses))"
+# (under the gate the paired holdout ratios are 0.970-0.982 against the
+# margin 0.90, so no window is accepted and the trajectory is VO's).
+# Per window: (initial cost, final cost, holdout ratio 1, holdout ratio 2).
+JAX_BA = {
+    True: {"solved": 19, "accepted": [False] * 4,
+           "windows": [
+               (3.909285306930542, 0.37683430314064026, 0.9805883169174194,
+                0.9819281697273254),
+               (3.8778297901153564, 0.3624119460582733, 0.9780118465423584,
+                0.9739909768104553),
+               (3.6195480823516846, 0.35250529646873474, 0.981719970703125,
+                0.9784586429595947),
+               (3.633420705795288, 0.3729010820388794, 0.970205545425415,
+                0.980882465839386)],
+           "ate_m": 0.030982688069343567},
+    False: {"solved": 19, "accepted": [True] * 4,
+            "windows": [
+                (3.909285306930542, 0.37683430314064026, 0.9805883169174194,
+                 0.9819281697273254),
+                (3.8941919803619385, 0.35551202297210693, 0.9768638014793396,
+                 0.9764490723609924),
+                (3.7014966011047363, 0.34283486008644104, 0.9729371070861816,
+                 0.9656022787094116),
+                (3.6895248889923096, 0.3686462640762329, 0.9691547751426697,
+                 0.9803063273429871)],
+            "ate_m": 0.01936240866780281}}
+BA_RTOL = 1e-3   # window costs and ratios, as tests/test_torch_windowed.py
+BA_ATE_BOUND = {g: max(1.5 * r["ate_m"], r["ate_m"] + 0.02)
+                for g, r in JAX_BA.items()}
+BA_WINDOW = dict(window=8, stride=4)
+BA_SHAPES = ((8, 1280, 128), (14, 1280, 128))   # a window's two calls
+# Phase 17, the composed back-end on phase 11's circle:
+#   python -c "import jax; jax.config.update('jax_platforms', 'cpu')
+#   import numpy as np
+#   from libviso_tpu.config import BAConfig, PipelineConfig
+#   from libviso_tpu.pipeline.ba_loop import run_windowed_ba_loop
+#   from libviso_tpu.synthetic import generate_sequence
+#   from libviso_tpu.utils.metrics import ate_rmse
+#   T = 96; yaw = 2 * np.pi / (T - 1); st = np.zeros((T, 6))
+#   st[1:] = [0, yaw, 0, 0, 0, 20 * np.sin(yaw / 2)]
+#   s = generate_sequence(num_frames=T, num_points=1400, seed=3,
+#       width=1241, height=376, f=718.856, base=0.5371657, trajectory=st)
+#   r = run_windowed_ba_loop(list(s.frames), s.P1, s.P2,
+#       PipelineConfig().with_metric('l1'), ba=BAConfig(window=8, stride=4),
+#       keyframe_every=4, min_gap=24, min_matches=40, min_inliers=20, seed=0)
+#   e = lambda P: np.linalg.norm(P[-1, :3, 3] - s.gt_poses[-1, :3, 3])
+#   print(r.frame_ok.sum(), [c[2] for c in r.window_costs],
+#       [(l.frame_new, l.frame_old, l.num_inliers) for l in r.loops],
+#       len(r.candidates), r.graph_cost, ate_rmse(r.poses_ba, s.gt_poses),
+#       ate_rmse(r.poses, s.gt_poses), e(r.poses_ba), e(r.poses))"
+# (the optimized ATE is above the open chain's in the reference too).
+JAX_BA_LOOP = {
+    "solved": 95, "accepted": [False] * 23,
+    "loops": [(80, 0, 20), (84, 0, 30), (88, 0, 24), (92, 0, 44)],
+    "candidates": 5, "graph_cost": (2.4819581508636475, 0.007201947271823883),
+    "ate_ba_m": 0.07091660052537918, "ate_opt_m": 0.12176359444856644,
+    "end_ba_m": 0.09881708025932312, "end_opt_m": 0.05271231755614281}
+BA_LOOP_ATE_BOUND = max(1.5 * JAX_BA_LOOP["ate_opt_m"],
+                        JAX_BA_LOOP["ate_opt_m"] + 0.02)
 KEYS = ("ok", "num_lr", "num_circle", "num_inliers")
 STATS = ("frame", "ok", "num_kp1", "num_lr", "num_circle", "num_inliers")
 SERVE_LENGTHS = (20, 20, 16, 12)   # streams of seeds 0..3
@@ -1285,23 +1391,19 @@ def loop_circle_sequence(T=96):
                              base=0.5371657, trajectory=steps)
 
 
-def loop_phase():
+def loop_phase(seq):
     """Phase 11: run_with_loop_closure on the 96-frame KITTI-size circle
-    under each backend.  Returns (per-kernel launches in its backend's run,
-    the candidate search of keyframe 80 in the dense run: (q_xy, q_desc,
-    q_valid, kf_xy, kf_desc, kf_valid), ms of each run)."""
+    ``seq`` under each backend.  Returns (per-kernel launches in its
+    backend's run, the candidate search of keyframe 80 in the dense run:
+    (q_xy, q_desc, q_valid, kf_xy, kf_desc, kf_valid), ms of each run)."""
     import torch
 
     from libviso_torch.config import PipelineConfig
     from libviso_torch.pipeline import loop as tl
     from libviso_torch.utils.metrics import ate_rmse
 
-    t0 = time.perf_counter()
-    seq = loop_circle_sequence()
     frames = list(seq.frames)
     T = len(frames)
-    print(f"[loop] {T}-frame circle of 1241x376 generated in "
-          f"{time.perf_counter() - t0:.1f} s")
     cfg = PipelineConfig().with_metric("l1")
     draws = _jax_stereo_draws(cfg)
     captured = {}
@@ -1455,24 +1557,26 @@ def _integer_problem(shape, seed):
             torch.zeros(B, dtype=torch.bool, device="cuda")]
 
 
-def loop_kernel_phase(problems):
-    """Phase 12: kernels #1-#3 against their plain versions at the loop
-    shapes, on integer descriptors and on the real candidate searches of
-    ``problems`` ({shape: candidate search}), and timed on the real ones.
-    Returns {shape: {kernel: row of the kernels line}} and the max abs
-    error per kernel."""
+def kernel_shapes_phase(tag, problems, seed0):
+    """Kernels #1-#3 against their plain versions at the shapes of a
+    path, on integer descriptors and on the path's real problems
+    (``problems``: {shape: (label, the match_problem_batch arguments of
+    the kernels, Sampson threshold, radius)}), and timed on the real ones.
+    Phase 12 (the loop shapes) and phase 16 (the BA window's).  Returns
+    {shape: {kernel: row of the kernels line}} and the max abs error per
+    kernel."""
     import torch
 
     from libviso_torch.ops import cuda_matching as cm
     from libviso_torch.ops import fused_matching as fm
 
-    radius, thresh = 1e9, 1.0
     err = {k: 0.0 for k in KERNELS}
     rows = {}
-    for seed, (shape, search) in enumerate(problems.items()):
-        for label, args in (("integer", _integer_problem(shape, 12 + seed)),
-                            ("candidate search", _problem_from_search(
-                                search))):
+    for seed, (shape, (real, real_args, thresh, radius)) in enumerate(
+            problems.items()):
+        for label, args in (("integer", _integer_problem(shape,
+                                                         seed0 + seed)),
+                            (real, real_args)):
             check(tuple(args[2].shape) == shape,
                   f"loop problem {tuple(args[2].shape)} != {shape}")
             sides = (args[0], args[1], args[3], args[4])
@@ -1515,10 +1619,10 @@ def loop_kernel_phase(problems):
                               f"from a tie")
                 err[name] = max(err[name], e)
                 how[name] = "bitwise" if bitwise else f"rtol 1e-5 ({e:.3g})"
-            print(f"[loop-kernel] {shape} {label}: == plain: " + ", ".join(
+            print(f"[{tag}] {shape} {label}: == plain: " + ", ".join(
                 f"{k} {v}" for k, v in how.items()))
-        # times on the real candidate search, in turns
-        args = _problem_from_search(search)
+        # times on the real problem, in turns
+        args = real_args
         sides = (args[0], args[1], args[3], args[4])
         order = fm.sweep_order(*sides)
         q_d, t_d = args[2], args[5]
@@ -1547,8 +1651,9 @@ def loop_kernel_phase(problems):
         B, N, D = shape
         pairs = int(fm.gate(*sides[:2], *sides[2:], args[6], args[7],
                             thresh, radius).sum())
-        # store slots that hold a keyframe: the problems with a valid
-        # target (#2 computes all B, the sweep skips the empty ones)
+        # the problems with a valid target (in the loop store the slots
+        # that hold a keyframe; #2 computes all B, the sweep skips the
+        # empty ones)
         filled = int(args[4].any(-1).sum())
         n_boxes = sum(-(-N // k) for k in fm.SWEEP_TILING)
         row = {
@@ -1577,12 +1682,12 @@ def loop_kernel_phase(problems):
             r["bound_ms"], r["bound_by"] = r.pop("bound")
             r["share_of_bound"] = r["bound_ms"] / r["ms"]
         rows[shape] = row
-        print(f"[loop-kernel] {shape} candidate search, ms per call (two "
+        print(f"[{tag}] {shape} {real}, ms per call (two "
               f"turns each): " + ", ".join(
                   f"{k} {t[k]:.4f} ({v[0]:.4f}, {v[1]:.4f})"
                   for k, v in ms.items())
-              + f"; {filled} of {B} problems hold a keyframe, {pairs} "
-              + "pairs pass the validity gate (radius 1e9); "
+              + f"; {filled} of {B} problems have a valid target, {pairs} "
+              + f"pairs pass the gates (radius {radius:g}); "
               + "bounds " + ", ".join(
                   f"{k} {r['bound_ms']:.4f} ms ({r['bound_by']}, share "
                   f"{r['share_of_bound']:.3f})" for k, r in row.items()))
@@ -1713,19 +1818,16 @@ def mono_loop_phase():
     return launches, (q_xy, q_desc, q_valid, kf_xy, kf_desc, kf_valid)
 
 
-def loop_cli_phase():
-    """Phase 14: cli kitti --loop-closure on a mini KITTI tree, cli synth
-    --world-loop and cli mono --sim3-loop, default --device cuda."""
-    try:
-        from PIL import Image
-    except ImportError:
-        print("[loop-cli] PIL does not import here: the CLI runs skipped")
-        return
+def _write_mini_kitti(home):
+    """A mini KITTI tree under ``home`` (emptied first): sequence 77, 6
+    stereo pairs of 416x160 as PNGs and its calib.txt.  Returns the
+    synthetic sequence."""
     import shutil
+
+    from PIL import Image
 
     from libviso_torch.synthetic import generate_sequence
 
-    home = os.path.join(ROOT, "build", "chip_smoke_loop")
     shutil.rmtree(home, ignore_errors=True)
     seq = generate_sequence(num_frames=6, num_points=500, seed=7, width=416,
                             height=160)
@@ -1740,6 +1842,21 @@ def loop_cli_phase():
         for cam, im in zip(("image_0", "image_1"), pair):
             Image.fromarray(im.astype(np.uint8)).save(
                 os.path.join(base, cam, f"{i:06d}.png"))
+    return seq
+
+
+def loop_cli_phase():
+    """Phase 14: cli kitti --loop-closure on a mini KITTI tree, cli synth
+    --world-loop and cli mono --sim3-loop, default --device cuda."""
+    try:
+        from PIL import Image
+    except ImportError:
+        print("[loop-cli] PIL does not import here: the CLI runs skipped")
+        return
+    import shutil
+
+    home = os.path.join(ROOT, "build", "chip_smoke_loop")
+    seq = _write_mini_kitti(home)
     os.makedirs(os.path.join(home, "mono"))
     for i, pair in enumerate(seq.frames):
         Image.fromarray(np.asarray(pair[0]).astype(np.uint8)).save(
@@ -1785,6 +1902,337 @@ def loop_cli_phase():
         flags = [a for a in argv[1:] if a.startswith("--")]
         print(f"[loop-cli] cli {argv[0]} {' '.join(flags)}: "
               f"{json.dumps(out)}")
+    shutil.rmtree(home)
+
+
+def _window_draws(cfg):
+    """The JAX package's window draws (tools/threefry.py): the port's
+    ``draws(w, n)`` seam."""
+    import torch
+
+    from tools import threefry as tf
+
+    shape = (cfg.ransac.num_hypotheses, cfg.detector.num_slots)
+    return lambda w, n: torch.from_numpy(tf.window_gumbel(0, w, n + 1,
+                                                          shape))
+
+
+def _trace_counts(fn):
+    """(result, device kernels, stream syncs) of one call of fn, by
+    torch.profiler (tools/profile_torch_step.py reads the trace)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tools.profile_torch_step import device_counts, trace_events
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    counts = device_counts(trace_events(prof))
+    return out, counts["kernel_launches"], counts["stream_syncs"]
+
+
+def ba_phase(seq):
+    """Phase 15: run_windowed_ba on the phase-4 sequence, l1, windows of 8
+    frames every 4, on the JAX package's window draws: under the gate with
+    each backend, and without it (dense).  Returns the kernels' launches
+    under their backends, in all and per shape ({shape: {kernel:
+    launches}}), and the first window's two match problems as {shape:
+    (label, kernel arguments, Sampson threshold, radius)}."""
+    import torch
+
+    from libviso_torch.config import BAConfig, PipelineConfig
+    from libviso_torch.pipeline import batched, windowed
+    from libviso_torch.utils.metrics import ate_rmse
+
+    cfg = PipelineConfig().with_metric("l1")
+    draws = _window_draws(cfg)
+    gt = seq.gt_poses
+    T = len(seq.frames)
+    problems = {}
+    per_shape = {}   # {shape: {kernel: launches}} of the current run
+    real_match = batched.match_problem_batch
+
+    def capture(*args, **kw):
+        # the first window's stereo and temporal problems, and each call's
+        # launches by the wrappers' counts
+        shape = tuple(args[2].shape)
+        if shape in BA_SHAPES and shape not in problems:
+            B = shape[0]
+            label = "stereo" if kw["use_epi"].any() else "temporal"
+            problems[shape] = (
+                f"{label} problems of window 0",
+                [*args, kw["F"].expand(B, 3, 3).contiguous(),
+                 kw["use_epi"].contiguous()],
+                kw["sampson_thresh"], kw["radius"])
+        before = read_launches()
+        out = real_match(*args, **kw)
+        row = per_shape.setdefault(shape, dict.fromkeys(KERNELS, 0))
+        for k, n in read_launches().items():
+            row[k] += n - before[k]
+        return out
+
+    def timed(fn, ms):
+        # fn with a sync before and after, its wall ms appended to ms
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            return out
+        return call
+
+    launches, shape_launches, runs = {}, {s: {} for s in BA_SHAPES}, {}
+    real_build = windowed.build_batched_odometry
+    real_refine = windowed.refine_window_motions
+    batched.match_problem_batch = capture
+    try:
+        for backend, gate in (("dense", True), ("fused", True),
+                              ("sweep", True), ("dense", False)):
+            front_ms, refine_ms, counted = [], [], []
+            # the per-window stages, timed: the front-end and the
+            # refinement; without the gate the refinement's launches and
+            # syncs are counted instead
+            windowed.build_batched_odometry = lambda *a, **kw: timed(
+                real_build(*a, **kw), front_ms)
+            if gate:
+                windowed.refine_window_motions = timed(real_refine,
+                                                       refine_ms)
+            else:
+                def refine(*a, **kw):
+                    out, k, n = _trace_counts(lambda: real_refine(*a, **kw))
+                    counted.append((k, n))
+                    return out
+                windowed.refine_window_motions = refine
+            reset_launches()
+            per_shape.clear()
+            res = windowed.run_windowed_ba(
+                seq.frames, seq.P1, seq.P2, cfg,
+                ba=BAConfig(**BA_WINDOW, gate=gate), backend=backend,
+                device="cuda", draws=draws)
+            counts = read_launches()
+            n_win = len(res.window_costs)
+            ref = JAX_BA[gate]
+            solved = int(res.frame_ok.sum())
+            accepted = [c[2] for c in res.window_costs]
+            ate = ate_rmse(res.poses, gt)
+            ate_vo = ate_rmse(res.poses_vo, gt)
+            what = f"ba {backend}, gate {'on' if gate else 'off'}"
+            check(solved == ref["solved"], f"{what}: solved {solved}/{T - 1}")
+            check(accepted == ref["accepted"],
+                  f"{what}: accepted {accepted}, JAX {ref['accepted']}")
+            check(all(c[1] <= c[0] for c in res.window_costs),
+                  f"{what}: a window's cost rose {res.window_costs}")
+            got = [(c[0], c[1], c[3], c[4]) for c in res.window_costs]
+            check(len(got) == len(ref["windows"]) and np.allclose(
+                      got, ref["windows"], rtol=BA_RTOL, atol=0.0),
+                  f"{what}: window (initial, final cost, holdout ratios) "
+                  f"{got}, JAX {ref['windows']} (rtol {BA_RTOL})")
+            gap = float(np.max(np.abs(np.subtract(got, ref["windows"]))
+                               / np.abs(ref["windows"])))
+            check(ate <= BA_ATE_BOUND[gate], f"{what}: ATE {ate} m above "
+                  f"{BA_ATE_BOUND[gate]} m (JAX {ref['ate_m']} m)")
+            if gate:
+                check(np.array_equal(res.poses, res.poses_vo),
+                      f"{what}: no window accepted, but the trajectory is "
+                      f"not VO's")
+            else:
+                check(ate < ate_vo, f"{what}: ATE {ate} m not below VO's "
+                      f"{ate_vo} m")
+            check(set(per_shape) == set(BA_SHAPES),
+                  f"{what}: match problems of the shapes "
+                  f"{sorted(per_shape)}, not {BA_SHAPES}")
+            for name in BACKEND_KERNELS[backend]:
+                by_shape = [per_shape[sh][name] for sh in BA_SHAPES]
+                check(counts[name] == 2 * n_win
+                      and by_shape == [n_win] * len(BA_SHAPES),
+                      f"{what}: {name} launched {counts[name]} times for "
+                      f"{n_win} windows, {by_shape} at {BA_SHAPES}")
+                if gate:
+                    launches[name] = counts[name]
+                    for sh in BA_SHAPES:
+                        shape_launches[sh][name] = per_shape[sh][name]
+            runs[(backend, gate)] = res
+            print(f"[ba] {what}: solved {solved}/{T - 1}, {n_win} windows, "
+                  f"accepted {accepted} (JAX {ref['accepted']}); costs "
+                  + ", ".join(f"{c[0]:.6f} -> {c[1]:.6f}"
+                              for c in res.window_costs)
+                  + "; holdout ratios " + ", ".join(
+                      f"{c[3]:.6f}/{c[4]:.6f}" for c in res.window_costs)
+                  + f" (JAX's within rtol {BA_RTOL:g}, largest gap "
+                  f"{gap:.3g})"
+                  + f"; ATE {ate:.5f} m (VO {ate_vo:.5f}; JAX "
+                  f"{ref['ate_m']:.5f}, bound {BA_ATE_BOUND[gate]:.5f}); "
+                  f"{' and '.join(BACKEND_KERNELS[backend])} "
+                  f"{counts[BACKEND_KERNELS[backend][0]]} launches each, "
+                  + ", ".join(f"{per_shape[sh][BACKEND_KERNELS[backend][0]]}"
+                              f" at {sh}" for sh in BA_SHAPES))
+            print(f"[ba] {what}: ms per window, front-end "
+                  f"{[round(x, 3) for x in front_ms]}"
+                  + (f", refinement {[round(x, 3) for x in refine_ms]}"
+                     if gate else
+                     f"; the refinement's device kernels and stream syncs "
+                     f"per window (torch.profiler): {counted}"))
+    finally:
+        batched.match_problem_batch = real_match
+        windowed.build_batched_odometry = real_build
+        windowed.refine_window_motions = real_refine
+    for backend in ("fused", "sweep"):
+        a, b = runs[(backend, True)], runs[("dense", True)]
+        check(np.array_equal(a.motions, b.motions)
+              and np.array_equal(a.frame_ok, b.frame_ok)
+              and a.window_costs == b.window_costs,
+              f"ba: {backend} differs from dense")
+    print("[ba] dense == fused == sweep under the gate: motions, ok flags "
+          "and window costs bit for bit")
+    check(set(problems) == set(BA_SHAPES),
+          f"ba: captured the shapes {sorted(problems)}, not {BA_SHAPES}")
+    return launches, shape_launches, problems
+
+
+def ba_loop_phase(seq):
+    """Phase 17: run_windowed_ba_loop on phase 11's 96-frame circle, l1,
+    sweep, on the JAX package's window and loop draws.  Returns the
+    route's launches."""
+    import torch
+
+    from libviso_torch.config import BAConfig, PipelineConfig
+    from libviso_torch.pipeline.ba_loop import run_windowed_ba_loop
+    from libviso_torch.utils.metrics import ate_rmse
+
+    cfg = PipelineConfig().with_metric("l1")
+    frames = list(seq.frames)
+    T = len(frames)
+    gt = seq.gt_poses
+    ref = JAX_BA_LOOP
+    backend = "sweep"
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    res = run_windowed_ba_loop(
+        frames, seq.P1, seq.P2, cfg, ba=BAConfig(**BA_WINDOW),
+        backend=backend, device="cuda", draws=_window_draws(cfg),
+        verify_draws=_jax_stereo_draws(cfg)["verify_draws"], **LOOP_KW)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read_launches()
+    n_win = len(res.window_costs)
+    searches = res.keyframes_offered - 1
+    guided = sum(3 for c in res.candidates if "refine_trace" in c)
+    launches = {}
+    for name in BACKEND_KERNELS[backend]:
+        launches[name] = counts[name]
+        check(counts[name] == 2 * n_win + searches + guided,
+              f"ba loop: {name} launched {counts[name]} times, not "
+              f"{2 * n_win} for the windows + {searches} candidate "
+              f"searches + {guided} guided matches")
+    solved = int(res.frame_ok.sum())
+    accepted = [c[2] for c in res.window_costs]
+    found = [(le.frame_new, le.frame_old, le.num_inliers) for le in res.loops]
+    ate_ba = ate_rmse(res.poses_ba, gt)
+    ate_opt = ate_rmse(res.poses, gt)
+    end = [float(np.linalg.norm(P[-1, :3, 3] - gt[-1, :3, 3]))
+           for P in (res.poses_ba, res.poses)]
+    check(solved == ref["solved"], f"ba loop: solved {solved}/{T - 1}")
+    check(accepted == ref["accepted"], f"ba loop: accepted {accepted}")
+    check([f[:2] for f in found] == [r[:2] for r in ref["loops"]],
+          f"ba loop: loops {found}, JAX {ref['loops']}")
+    for (_, _, n), (_, _, want) in zip(found, ref["loops"]):
+        check(abs(n - want) <= 0.1 * want,
+              f"ba loop: inliers {found}, JAX {ref['loops']}")
+    check(res.graph_cost[1] < res.graph_cost[0],
+          f"ba loop: graph cost {res.graph_cost}")
+    check(ref["graph_cost"][1] / 2 <= res.graph_cost[1]
+          <= 2 * ref["graph_cost"][1],
+          f"ba loop: optimized graph cost {res.graph_cost[1]}, JAX "
+          f"{ref['graph_cost'][1]}")
+    check(end[1] <= end[0], f"ba loop: endpoint {end[1]} m optimized, "
+          f"{end[0]} m BA chain")
+    check(ate_opt <= BA_LOOP_ATE_BOUND, f"ba loop: optimized ATE {ate_opt} "
+          f"m above {BA_LOOP_ATE_BOUND} m (JAX {ref['ate_opt_m']} m)")
+    print(f"[ba-loop] {backend}: solved {solved}/{T - 1}, {n_win} windows, "
+          f"{sum(accepted)} accepted (JAX 0); loops {found} (JAX "
+          f"{ref['loops']}); {len(res.candidates)} candidates verified (JAX "
+          f"{ref['candidates']}); graph cost {res.graph_cost[0]:.6f} -> "
+          f"{res.graph_cost[1]:.6g} (JAX {ref['graph_cost']}); ATE "
+          f"{ate_ba:.4f} m BA chain, {ate_opt:.4f} m optimized (JAX "
+          f"{ref['ate_ba_m']:.4f} / {ref['ate_opt_m']:.4f}, bound "
+          f"{BA_LOOP_ATE_BOUND:.4f}); endpoint {end[0]:.4f} -> {end[1]:.4f} "
+          f"m (JAX {ref['end_ba_m']:.4f} -> {ref['end_opt_m']:.4f}); "
+          f"{' and '.join(BACKEND_KERNELS[backend])} "
+          f"{counts[BACKEND_KERNELS[backend][0]]} launches each ({n_win} "
+          f"windows, {searches} candidate searches, {guided} guided "
+          f"matches); {T / dt:.2f} frames/s")
+    return launches
+
+
+def ba_cli_phase():
+    """Phase 18: cli kitti --ba-window 4, alone and with --loop-closure,
+    on a mini KITTI tree with --checkpoint-every 1 and the default
+    --device cuda, each resumed from its next-to-last snapshot with the
+    same poses; --keep-on-failure with --ba-window exits non-zero."""
+    try:
+        import PIL  # noqa: F401
+    except ImportError:
+        print("[ba-cli] PIL does not import here: the CLI runs skipped")
+        return
+    import contextlib
+    import io
+    import shutil
+
+    from libviso_torch import cli
+
+    home = os.path.join(ROOT, "build", "chip_smoke_ba")
+    _write_mini_kitti(home)
+    base = ["77", "--kitti-home", home, "--metric", "l1", "--backend",
+            "sweep", "--ba-window", "4", "--checkpoint-every", "1"]
+    loop = ["--loop-closure", "--keyframe-every", "2", "--loop-min-gap", "4",
+            "--loop-min-matches", "20", "--loop-min-inliers", "12"]
+    keys = {"sequence", "frames", "device", "solved", "fps", "poses",
+            "ba_windows", "ba_improved", "health"}
+
+    def run(argv):
+        # in this process (the kernels are built): the CLI's main, as
+        # `python -m libviso_torch.cli kitti ...` calls it
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            cli.main(["kitti", *argv])
+        return json.loads(out.getvalue().strip().splitlines()[-1])
+
+    for sha, extra, mode in (("ba", [], "ba"), ("baloop", loop, "ba_loop")):
+        out = run([sha, *base, *extra])
+        want = keys | ({"loops", "graph_cost"} if extra else set())
+        check(set(out) == want and out["device"] == "cuda",
+              f"cli kitti {mode}: keys {sorted(out)}")
+        check(out["solved"] == 5 and out["ba_windows"] == 2,
+              f"cli kitti {mode}: {out}")
+        with open(out["poses"]) as fh:
+            poses = fh.read()
+        ckdir = os.path.join(home, "results", "77", sha, "checkpoints", mode)
+        snaps = sorted(os.listdir(ckdir))
+        check(snaps, f"cli kitti {mode}: no checkpoint in {ckdir}")
+        os.remove(os.path.join(ckdir, snaps[-1]))
+        again = run([sha, *base, *extra])
+        with open(again["poses"]) as fh:
+            check(fh.read() == poses, f"cli kitti {mode}: the resumed run's "
+                  f"poses differ")
+        check(again.get("loops") == out.get("loops"),
+              f"cli kitti {mode}: resumed loops {again.get('loops')}")
+        print(f"[ba-cli] cli kitti --ba-window 4"
+              f"{' --loop-closure' if extra else ''}: {json.dumps(out)}; "
+              f"resumed from {snaps[-2] if len(snaps) > 1 else 'nothing'}: "
+              f"the same poses")
+    try:
+        cli.main(["kitti", "bad", *base, "--keep-on-failure"])
+        refused = None
+    except SystemExit as e:
+        refused = e.code
+    check(isinstance(refused, str) and "--keep-on-failure" in refused,
+          f"--keep-on-failure --ba-window exited with {refused!r}")
+    print(f"[ba-cli] --keep-on-failure --ba-window 4 exits non-zero: "
+          f"{refused}")
     shutil.rmtree(home)
 
 
@@ -1881,14 +2329,25 @@ def main():
     mono_launches = mono_phase(seq)
     mono_cli_phase()
 
-    loop_launches, search, _ = loop_phase()
+    t0 = time.perf_counter()
+    circle = loop_circle_sequence()
+    print(f"[loop] {len(circle.frames)}-frame circle of 1241x376 generated "
+          f"in {time.perf_counter() - t0:.1f} s")
+    loop_launches, search, _ = loop_phase(circle)
     mono_loop_launches, mono_search = mono_loop_phase()
     check(tuple(mono_search[4].shape) == MONO_LOOP_SHAPE,
           f"the mono loop's store is {tuple(mono_search[4].shape)}, not "
           f"{MONO_LOOP_SHAPE}")
-    loop_rows, loop_err = loop_kernel_phase({LOOP_SHAPE: search,
-                                             MONO_LOOP_SHAPE: mono_search})
+    loop_rows, loop_err = kernel_shapes_phase("loop-kernel", {
+        shape: ("candidate search", _problem_from_search(problem), 1.0, 1e9)
+        for shape, problem in ((LOOP_SHAPE, search),
+                               (MONO_LOOP_SHAPE, mono_search))}, 12)
     loop_cli_phase()
+
+    ba_launches, ba_shape_launches, ba_problems = ba_phase(seq)
+    ba_rows, ba_err = kernel_shapes_phase("ba-kernel", ba_problems, 20)
+    ba_loop_launches = ba_loop_phase(circle)
+    ba_cli_phase()
 
     line = kernels_line(launches, l1_err, l1_times, serve_launches,
                         fused_err, fused_times, counts)
@@ -1896,16 +2355,23 @@ def main():
         kernel = k["name"]
         k["window_launches"] = window_launches.get(kernel)
         k["mono_launches"] = mono_launches[kernel]
-        k["loop_launches"] = loop_launches[kernel]
+        k["loop_launches"] = loop_launches.get(kernel)
         k["mono_loop_launches"] = mono_loop_launches.get(kernel)
-        k["max_abs_err"] = max(k["max_abs_err"], loop_err[kernel])
+        k["ba_launches"] = ba_launches.get(kernel)
+        k["ba_loop_launches"] = ba_loop_launches.get(kernel)
+        k["max_abs_err"] = max(k["max_abs_err"], loop_err[kernel],
+                               ba_err[kernel])
         k["shapes"].append({"shape": list(MONO_SHAPE), **mono_rows[kernel]})
         k["shapes"].append({"shape": list(LOOP_SHAPE),
-                            "launches": loop_launches[kernel],
+                            "launches": loop_launches.get(kernel),
                             **loop_rows[LOOP_SHAPE][kernel]})
         k["shapes"].append({"shape": list(MONO_LOOP_SHAPE),
                             "launches": mono_loop_launches.get(kernel),
                             **loop_rows[MONO_LOOP_SHAPE][kernel]})
+        for shape in BA_SHAPES:
+            k["shapes"].append({"shape": list(shape),
+                                "launches": ba_shape_launches[shape][kernel],
+                                **ba_rows[shape][kernel]})
     print(f"[time] chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

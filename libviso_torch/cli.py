@@ -6,6 +6,7 @@
       [--kitti-home DIR]        (default $KITTI_HOME)
       [--checkpoint-every N] [--save-debug]
       [--loop-closure [--keyframe-every N] [--loop-min-gap G] ...]
+      [--ba-window W [--ba-stride S] [--ba-no-gate] ...]
                                 (several sequences: each in turn)
   python -m libviso_torch.cli serve RESULT_SHA SEQ,SEQ[,...] [--pool N]
       [--begin B] [--end E] [--checkpoint-every N]
@@ -32,11 +33,11 @@ pipeline flags (``--subpixel``, ``--pyramid``, ``--sharpen``,
 ``--chunk``) and the health flags are the JAX CLI's, with its defaults.
 ``mono`` takes the JAX CLI's flags and, like the others, ``--device``,
 ``--metric`` and ``--backend``.  Loop closure (``kitti --loop-closure``,
-``pipeline/loop.py``) and the mono Sim(3) back-end (``mono --sim3-loop``,
-``pipeline/mono_loop.py``) take the JAX CLI's flags and print its JSON
-keys.  Flags of the JAX CLI that the port does not run yet (bundle
-adjustment) are recognised and raise NotImplementedError naming the
-ROADMAP.md item that ports them.
+``pipeline/loop.py``), windowed bundle adjustment (``kitti --ba-window``,
+``pipeline/windowed.py``; with ``--loop-closure`` the composed back-end,
+``pipeline/ba_loop.py``) and the mono Sim(3) back-end (``mono
+--sim3-loop``, ``pipeline/mono_loop.py``) take the JAX CLI's flags and
+print its JSON keys.
 """
 
 from __future__ import annotations
@@ -46,33 +47,6 @@ import json
 import os
 import sys
 import time
-
-# (flag, takes a value, ROADMAP.md item that ports it)
-_BA = "Queue 1 item 12 (windowed BA)"
-_NOT_PORTED_KITTI = tuple(
-    (flag, takes_value, _BA) for flag, takes_value in (
-        ("--ba-window", True), ("--ba-stride", True), ("--ba-prior", True),
-        ("--ba-outlier-px", True), ("--ba-rerank-px", True),
-        ("--ba-no-gate", False), ("--ba-holdout", True),
-        ("--ba-gate-margin", True), ("--ba-min-cam-obs", True)))
-
-
-def _add_not_ported(parser, entries):
-    for flag, takes_value, _ in entries:
-        if takes_value:
-            parser.add_argument(flag, default=None, help=argparse.SUPPRESS)
-        else:
-            parser.add_argument(flag, action="store_true", default=None,
-                                help=argparse.SUPPRESS)
-
-
-def _reject_not_ported(args, entries):
-    for flag, _, item in entries:
-        if getattr(args, flag[2:].replace("-", "_")) is not None:
-            raise NotImplementedError(
-                f"{flag} is not ported to libviso_torch yet: ROADMAP.md "
-                f"{item}")
-
 
 def _add_common_flags(parser):
     parser.add_argument("--seed", type=int, default=0)
@@ -208,13 +182,14 @@ def _checkpoint_manager(directory, every):
 def _cmd_kitti(args):
     from libviso_torch.pipeline.stereo import run_stereo_sequence
 
-    _reject_not_ported(args, _NOT_PORTED_KITTI)
-    if args.loop_closure:
-        if "," in args.seq:
-            sys.exit("--loop-closure takes one sequence")
-        _kitti_loop(args)
-        return
+    if args.keep_on_failure and args.ba_window > 0:
+        # at the argv edge, before any frame is read
+        sys.exit("--keep-on-failure is a streaming-mode feature and "
+                 "cannot combine with --ba-window (the batched windows "
+                 "match all frame pairs in parallel)")
     if "," in args.seq:
+        if args.loop_closure:
+            sys.exit("--loop-closure takes one sequence")
         # several sequences: each in turn, one JSON line each
         import copy
 
@@ -222,6 +197,12 @@ def _cmd_kitti(args):
             sub = copy.copy(args)
             sub.seq = name
             _cmd_kitti(sub)
+        return
+    if args.ba_window > 0:
+        _kitti_ba(args)
+        return
+    if args.loop_closure:
+        _kitti_loop(args)
         return
     cfg = _config(args)
     kitti_home = args.kitti_home or os.environ.get("KITTI_HOME")
@@ -292,12 +273,86 @@ def _kitti_loop(args):
         "sequence": args.seq, "frames": len(res.poses),
         "device": args.device, "solved": out["solved"],
         "fps": res.processed / dt if dt > 0 else None,
-        "poses": out["poses"],
+        "poses": out["poses"], **_loop_keys(res), "health": out["health"],
+    }))
+
+
+def _loop_keys(res):
+    """The output JSON's ``loops`` (each verified edge with its final
+    robust weight) and ``graph_cost`` of a loop-closing run."""
+    return {
         "loops": [{"new": le.frame_new, "old": le.frame_old,
                    "inliers": le.num_inliers,
                    "edge_scale": float(res.loop_edge_scale[i])}
                   for i, le in enumerate(res.loops)],
-        "graph_cost": list(res.graph_cost), "health": out["health"],
+        "graph_cost": list(res.graph_cost)}
+
+
+def _kitti_ba(args):
+    """``kitti --ba-window W``: windowed bundle adjustment
+    (``pipeline/windowed.py``), or with ``--loop-closure`` the composed
+    BA + loop back-end (``pipeline/ba_loop.py``); checkpoints go under
+    checkpoints/ba or checkpoints/ba_loop, every N completed windows.  The
+    output JSON adds ``ba_windows`` and ``ba_improved`` (windows accepted
+    whose cost fell), and in composed mode ``loops`` and ``graph_cost``;
+    metrics.jsonl gets the frames' ok flags and, composed, one
+    ``loop_candidate`` row per verification."""
+    from libviso_torch.config import BAConfig
+
+    cfg = _config(args)
+    kitti_home = args.kitti_home or os.environ.get("KITTI_HOME")
+    if not kitti_home:
+        sys.exit("KITTI_HOME not set (flag --kitti-home or env)")
+    stream, P1, P2 = _open_sequence(kitti_home, args.seq, args.begin,
+                                    args.end)
+    result_dir = os.path.join(kitti_home, "results", args.seq,
+                              args.result_sha)
+    stride = (args.ba_stride if args.ba_stride > 0
+              else max(args.ba_window // 2, 1))
+    margin = ({} if args.ba_gate_margin is None
+              else {"gate_margin": args.ba_gate_margin})
+    ba = BAConfig(window=args.ba_window, stride=stride,
+                  outlier_px=args.ba_outlier_px, rerank_px=args.ba_rerank_px,
+                  prior_strength=args.ba_prior,
+                  min_cam_obs=args.ba_min_cam_obs, gate=not args.ba_no_gate,
+                  holdout_modulus=args.ba_holdout, **margin)
+    mode = "ba_loop" if args.loop_closure else "ba"
+    common = dict(
+        seed=args.seed, backend=args.backend, device=args.device,
+        checkpoint=_checkpoint_manager(
+            os.path.join(result_dir, "checkpoints", mode),
+            args.checkpoint_every),
+        fingerprint_scope=f"{args.seq}:{args.begin}:{args.end}",
+        dbg_dir=os.path.join(result_dir, "dbg") if args.save_debug else None)
+    t0 = time.perf_counter()
+    if args.loop_closure:
+        from libviso_torch.pipeline.ba_loop import run_windowed_ba_loop
+
+        res = run_windowed_ba_loop(
+            list(stream), P1, P2, cfg, ba=ba,
+            keyframe_every=args.keyframe_every, min_gap=args.loop_min_gap,
+            min_matches=args.loop_min_matches,
+            min_inliers=args.loop_min_inliers, robust=args.loop_robust,
+            eviction=args.loop_eviction, **common)
+    else:
+        from libviso_torch.pipeline.windowed import run_windowed_ba
+
+        res = run_windowed_ba(list(stream), P1, P2, cfg, ba=ba, **common)
+    dt = time.perf_counter() - t0
+    stats = [{"frame": t, "ok": bool(ok)} for t, ok in enumerate(res.frame_ok)]
+    extra = {"ba_windows": len(res.window_costs),
+             "ba_improved": sum(1 for c in res.window_costs
+                                if c[2] and c[1] < c[0])}
+    if args.loop_closure:
+        stats += [{"loop_candidate": c} for c in res.candidates]
+        extra.update(_loop_keys(res))
+    out = _write_results(kitti_home, args.result_sha, args.seq, res,
+                         _health_cfg(args), stats=stats)
+    print(json.dumps({
+        "sequence": args.seq, "frames": len(res.poses),
+        "device": args.device, "solved": out["solved"],
+        "fps": res.processed / dt if dt > 0 else None,
+        "poses": out["poses"], **extra, "health": out["health"],
     }))
 
 
@@ -317,17 +372,20 @@ def _open_sequence(kitti_home, name, begin, end):
     return stream, P1, P2
 
 
-def _write_results(kitti_home, result_sha, name, res, hc):
+def _write_results(kitti_home, result_sha, name, res, hc, stats=None):
     """Write a sequence's metrics.jsonl and KITTI-format poses under
     results/NAME/RESULT_SHA; returns its summary for the output JSON.
-    ``hc`` is the HealthConfig of the alarm thresholds."""
+    ``hc`` is the HealthConfig of the alarm thresholds; ``stats`` the
+    metrics rows, by default ``res.stats``."""
     from libviso_torch.io.kitti import save_poses_kitti
     from libviso_torch.utils.metrics import MetricsLogger, health_summary
 
+    if stats is None:
+        stats = res.stats
     result_dir = os.path.join(kitti_home, "results", name, result_sha)
     os.makedirs(result_dir, exist_ok=True)
     with MetricsLogger(os.path.join(result_dir, "metrics.jsonl")) as ml:
-        for s in res.stats:
+        for s in stats:
             ml.log(s)
     poses_path = os.path.join(result_dir, "data", f"{name}.txt")
     save_poses_kitti(poses_path, res.poses)
@@ -335,7 +393,7 @@ def _write_results(kitti_home, result_sha, name, res, hc):
         "sequence": name, "frames": len(res.poses),
         "solved": int(res.frame_ok.sum()), "poses": poses_path,
         "health": health_summary(
-            res.stats, res.frame_ok,
+            stats, res.frame_ok,
             support_ratio_alarm=hc.support_ratio_alarm,
             motion_jump_alarm=hc.motion_jump_alarm)}
 
@@ -621,6 +679,41 @@ def main(argv=None):
     k.add_argument("--save-debug", action="store_true",
                    help="write per-frame debug artifacts under "
                         "results/.../dbg")
+    k.add_argument("--ba-window", type=int, default=0, metavar="W",
+                   help="refine with sliding-window bundle adjustment of "
+                        "W frames, stride W/2 (0 = off); with "
+                        "--loop-closure the composed BA + loop back-end; "
+                        "--checkpoint-every then counts windows")
+    k.add_argument("--ba-stride", type=int, default=0,
+                   help="window start spacing (default 0 = window/2; "
+                        "stride < window overlaps consecutive windows)")
+    k.add_argument("--ba-prior", type=float, default=1.0,
+                   help="cross-window marginalization-prior strength: "
+                        "each window's overlap motions are anchored at the "
+                        "previous window's refined estimates (0 = "
+                        "independent windows)")
+    k.add_argument("--ba-outlier-px", type=float, default=30.0,
+                   help="BA stage-1 observation gate on initial "
+                        "reprojection error [px]")
+    k.add_argument("--ba-rerank-px", type=float, default=2.0,
+                   help="BA stage-2 re-gate on coarse-solution residuals "
+                        "[px]")
+    k.add_argument("--ba-no-gate", action="store_true",
+                   help="disable the per-window acceptance gate (apply "
+                        "every converged window; the gate keeps a window's "
+                        "VO motions unless the refinement clearly beats "
+                        "them on the gate observations)")
+    k.add_argument("--ba-holdout", type=int, default=0, metavar="M",
+                   help="gate population: 0 = all tracked observations "
+                        "(default); M>1 = hold every M-th landmark out of "
+                        "BA and gate on those only")
+    k.add_argument("--ba-gate-margin", type=float, default=None,
+                   help="clear-win bar: the mean of the two split-half "
+                        "paired error ratios (refined/VO) must be <= "
+                        "margin.  Default: BAConfig.gate_margin (0.90)")
+    k.add_argument("--ba-min-cam-obs", type=int, default=24,
+                   help="min post-gate observations per camera for its "
+                        "adjacent motions to take the BA refinement")
     k.add_argument("--loop-closure", action="store_true",
                    help="detect revisits and remove accumulated drift with "
                         "pose-graph optimization (one sequence)")
@@ -643,7 +736,6 @@ def main(argv=None):
                         "the trajectory, 'fifo' overwrites the oldest")
     _add_common_flags(k)
     _add_health_flags(k)
-    _add_not_ported(k, _NOT_PORTED_KITTI)
     k.set_defaults(fn=_cmd_kitti)
 
     s = sub.add_parser("synth", help="synthetic-sequence smoke run")

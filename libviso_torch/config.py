@@ -247,8 +247,11 @@ class MonoConfig:
 
 @dataclasses.dataclass(frozen=True)
 class BAConfig:
-    """Sliding-window bundle-adjustment configuration (mirrored; BA is not
-    ported yet)."""
+    """Sliding-window bundle-adjustment configuration
+    (``pipeline/windowed.py``): window and stride in frames, LM iterations,
+    the two observation gates [px], the cross-window and VO-anchor prior
+    strengths, the observations a camera needs for its refined motion, and
+    the acceptance gate (``pipeline/refine.py::holdout_gate``)."""
 
     window: int = 8
     stride: int = 4
@@ -261,6 +264,15 @@ class BAConfig:
     gate: bool = True
     holdout_modulus: int = 0
     gate_margin: float = 0.90
+
+    def __post_init__(self):
+        if self.stride > self.window:
+            raise ValueError(
+                f"stride ({self.stride}) must be <= window "
+                f"({self.window}): larger strides leave frames covered "
+                "by no BA window")
+        if self.holdout_modulus < 0:
+            raise ValueError("holdout_modulus must be >= 0")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from libviso_torch.config import Calib, PipelineConfig
@@ -57,6 +58,24 @@ class TrackData(NamedTuple):
     # left-view descriptors and Harris responses, for keyframe summaries
     d1: torch.Tensor            # (T, N, D)
     kp1_response: torch.Tensor  # (T, N)
+
+
+def tracks_from_jax(tracks, device="cpu") -> TrackData:
+    """The port's TrackData from the JAX package's (any array leaves with
+    the same field names): indices as int64, masks as bool, the rest as
+    float32, on ``device``.  A test builds both packages' BA windows from
+    one front-end output with it."""
+    def leaf(x):
+        a = np.array(x)
+        t = torch.from_numpy(a)
+        if a.dtype.kind in "iu":
+            t = t.long()
+        elif a.dtype.kind == "f":
+            t = t.float()
+        return t.to(device)
+
+    return TrackData(*(leaf(getattr(tracks, name))
+                       for name in TrackData._fields))
 
 
 def build_batched_odometry(calib: Calib, F, cfg: PipelineConfig,

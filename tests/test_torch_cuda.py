@@ -4,7 +4,10 @@ plain versions, and the pipeline and multi-stream serving on the card
 against the CPU and the solo runs, and the mono path on the card: the
 5-point solver's batch invariance and the three matcher routes on the same
 draws; loop closure on the card: the three routes give one
-``LoopEngine.offer`` result, and a loop-mode resume is bit-exact.
+``LoopEngine.offer`` result, and a loop-mode resume is bit-exact;
+windowed bundle adjustment on the card: the BA equals its CPU run and makes
+no host sync, the inverted match map keeps the last writer, the three
+routes give one windowed run, and a windowed resume is bit-exact.
 
 Every test is marked ``cuda`` and skips without a card.  The file imports
 no JAX, so it runs on a machine that has none; the suite's conftest.py
@@ -656,3 +659,150 @@ def test_loop_resume_on_the_card_equals_the_uninterrupted_run(tmp_path):
         == [(le.frame_new, le.frame_old, le.num_inliers) for le in want.loops]
     np.testing.assert_array_equal(got.poses, want.poses)
     assert got.graph_cost == want.graph_cost
+
+
+def _ba_window(W=8, L=1280, seed=0):
+    """A BA window at the pipeline's width (numpy from a seed, the
+    generator of tests/test_bundle_adjust.py's make_window): W cameras
+    driving forward over L landmarks, 0.3 px of noise, 85 % visible; the
+    start perturbed.  Returns CPU tensors (poses0, X0, obs, mask) and the
+    calibration."""
+    from libviso_torch.solvers.gauss_newton import stereo_predict
+
+    rng = np.random.default_rng(seed)
+    calib = Calib(f=718.856, cu=607.19, cv=185.22, base=0.537)
+    X = np.stack([rng.uniform(-15, 15, L), rng.uniform(-3, 3, L),
+                  rng.uniform(8, 60, L)], axis=-1)
+    poses = np.array([[0.002 * k, -0.004 * k, 0.001 * k, 0.02 * k,
+                       -0.01 * k, -0.8 * k] for k in range(W)])
+    obs, _ = stereo_predict(torch.tensor(poses, dtype=torch.float32),
+                            torch.tensor(X, dtype=torch.float32), calib)
+    obs = obs + 0.3 * torch.tensor(rng.normal(size=obs.shape),
+                                   dtype=torch.float32)
+    mask = rng.uniform(size=(W, L)) < 0.85
+    mask[0] = True
+    poses0 = poses + 0.01 * rng.normal(size=poses.shape)
+    poses0[0] = poses[0]
+    X0 = X + 0.05 * rng.normal(size=X.shape)
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32)  # noqa: E731
+    return (f32(poses0), f32(X0), obs, torch.tensor(mask)), calib
+
+
+def test_bundle_adjust_on_the_card_equals_the_cpu_run():
+    """(W, L) = (8, 1280), the default window at the default slot count:
+    within tests/test_torch_bundle_adjust.py's tolerances of the CPU run."""
+    require_cuda()
+    from libviso_torch.solvers.bundle_adjust import bundle_adjust
+
+    args, calib = _ba_window()
+    cpu = bundle_adjust(*args, calib, iters=10)
+    gpu = bundle_adjust(*(a.cuda() for a in args), calib, iters=10)
+    np.testing.assert_allclose(gpu.poses.cpu(), cpu.poses, atol=1e-4)
+    np.testing.assert_allclose(gpu.landmarks.cpu(), cpu.landmarks,
+                               atol=1e-3, rtol=2e-4)
+    np.testing.assert_allclose(float(gpu.initial_cost),
+                               float(cpu.initial_cost), rtol=1e-5)
+    np.testing.assert_allclose(float(gpu.cost), float(cpu.cost), rtol=1e-4,
+                               atol=1e-8)
+    assert float(gpu.cost) < float(gpu.initial_cost)
+
+
+def test_bundle_adjust_makes_no_host_sync():
+    """After a first call (which loads the solver libraries), a call at
+    (8, 1280) with a prior runs with torch's sync debug mode set to raise
+    on any host synchronisation."""
+    require_cuda()
+    from libviso_torch.solvers.bundle_adjust import bundle_adjust
+
+    args, calib = _ba_window()
+    args = [a.cuda() for a in args]
+    kw = dict(iters=10, pose_prior=args[0] + 1e-3,
+              prior_weight=torch.full_like(args[0], 100.0))
+    bundle_adjust(*args, calib, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        res = bundle_adjust(*args, calib, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.isfinite(res.poses).all()
+
+
+def test_invert_match_map_keeps_the_last_writer_on_the_card():
+    require_cuda()
+    from libviso_torch.pipeline.refine import invert_match_map
+
+    rng = np.random.default_rng(0)
+    idx = rng.integers(0, 50, (14, 1280))
+    valid = rng.random((14, 1280)) < 0.8
+    want = np.full((14, 50), -1)
+    for r in range(14):
+        for cur in range(1280):
+            if valid[r, cur]:
+                want[r, idx[r, cur]] = cur
+    idx_c = torch.tensor(idx, device="cuda")
+    valid_c = torch.tensor(valid, device="cuda")
+    for _ in range(5):
+        got = invert_match_map(idx_c, valid_c, 50)
+        np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+def _ba_sequence():
+    seq = generate_sequence(num_frames=10, num_points=500, seed=31,
+                            width=416, height=160, speed=0.6, f=360.0)
+    return seq, PipelineConfig().with_metric("l1")
+
+
+def test_windowed_ba_backends_agree_on_the_card():
+    """run_windowed_ba under dense, fused and sweep on the card: the same
+    motions, flags and window costs bit for bit, two launches of the
+    route's kernels a window."""
+    require_cuda()
+    from libviso_torch.config import BAConfig
+    from libviso_torch.pipeline.windowed import run_windowed_ba
+
+    seq, cfg = _ba_sequence()
+    names = {"dense": ["l1"], "fused": ["fused_gated_two_min"],
+             "sweep": ["sweep_order", "fused_sweep_two_min"]}
+    results = {}
+    for backend, kernels in names.items():
+        before = {n: cm.launches if n == "l1" else fm.launches[n]
+                  for n in kernels}
+        res = run_windowed_ba(seq.frames, seq.P1, seq.P2, cfg,
+                              ba=BAConfig(window=6, stride=3, gate=False),
+                              backend=backend, device="cuda")
+        for n in kernels:
+            now = cm.launches if n == "l1" else fm.launches[n]
+            assert now - before[n] == 2 * len(res.window_costs), (backend, n)
+        results[backend] = res
+        assert res.frame_ok[1:].all()
+    for backend in ("fused", "sweep"):
+        np.testing.assert_array_equal(results[backend].motions,
+                                      results["dense"].motions)
+        np.testing.assert_array_equal(results[backend].frame_ok,
+                                      results["dense"].frame_ok)
+        assert results[backend].window_costs == results["dense"].window_costs
+
+
+def test_windowed_resume_on_the_card_equals_the_uninterrupted_run(tmp_path):
+    require_cuda()
+    from libviso_torch.config import BAConfig
+    from libviso_torch.pipeline.windowed import run_windowed_ba
+    from libviso_torch.utils.checkpoint import CheckpointManager
+
+    seq, cfg = _ba_sequence()
+    run = lambda **kw: run_windowed_ba(  # noqa: E731
+        seq.frames, seq.P1, seq.P2, cfg, ba=BAConfig(window=4, stride=2),
+        backend="sweep", device="cuda", **kw)
+    want = run()
+    mgr = CheckpointManager(str(tmp_path), every=1, keep=10)
+    run(checkpoint=mgr)
+    names = sorted(p.name for p in tmp_path.iterdir())
+    for name in names[2:]:
+        (tmp_path / name).unlink()
+    got = run(checkpoint=mgr)
+    assert got.processed == 10 - 4
+    np.testing.assert_array_equal(got.motions, want.motions)
+    np.testing.assert_array_equal(got.poses, want.poses)
+    np.testing.assert_array_equal(got.frame_ok, want.frame_ok)
+    assert got.window_costs == want.window_costs

@@ -37,7 +37,9 @@ def test_package_has_sources():
             "utils/stats.py", "geometry/sim3.py", "geometry/procrustes.py",
             "solvers/pose_graph.py", "solvers/pose_graph_sim3.py",
             "ops/structural.py", "pipeline/loop.py",
-            "pipeline/mono_loop.py"} <= names
+            "pipeline/mono_loop.py", "solvers/bundle_adjust.py",
+            "pipeline/refine.py", "pipeline/windowed.py",
+            "pipeline/ba_loop.py"} <= names
 
 
 @pytest.mark.parametrize("path", SOURCES,

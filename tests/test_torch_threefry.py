@@ -18,6 +18,7 @@ from tests.torch_parity import (
     jax_loop_verify_gumbel,
     jax_mono_gumbel,
     jax_sim3_verify_gumbel,
+    jax_window_gumbel,
     to_np,
 )
 
@@ -70,3 +71,11 @@ def test_helpers_equal_the_jax_package_draws(seed, t):
                     jax_loop_verify_gumbel(seed, t, it, 256, 256))
     _same_draws(tf.sim3_verify_gumbel(seed, t, (128, 256)),
                 jax_sim3_verify_gumbel(seed, t, 128, 256))
+
+
+@pytest.mark.parametrize("seed,w,T_w", [(0, 0, 8), (0, 3, 8), (6, 2, 6)])
+def test_window_draws_equal_the_jax_package_draws(seed, w, T_w):
+    """A BA window's draws: fold_in(w), split(T_w - 1), gumbel each."""
+    got = tf.window_gumbel(seed, w, T_w, (32, 512))
+    assert got.shape == (T_w - 1, 32, 512)
+    _same_draws(got, jax_window_gumbel(seed, w, T_w - 1, 32, 512))

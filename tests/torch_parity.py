@@ -84,3 +84,15 @@ def jax_sim3_verify_gumbel(seed: int, q: int, num_hypotheses: int,
     key = jax.random.fold_in(
         jax.random.fold_in(jax.random.PRNGKey(seed), 1_000_003), q)
     return jax_key_gumbel(key, (num_hypotheses, num_slots))
+
+
+def jax_window_gumbel(seed: int, w: int, n: int, num_hypotheses: int,
+                      num_slots: int):
+    """The draws of window w of the JAX windowed BA, for its n transitions:
+    fold_in(PRNGKey(seed), w) -> split(n) -> gumbel each, as an (n, H, N)
+    torch tensor (the port's ``draws(w, n)`` seam)."""
+    key = jax.random.fold_in(jax.random.PRNGKey(seed), w)
+    return torch.stack([
+        to_torch(jax.random.gumbel(k, (num_hypotheses, num_slots),
+                                   jnp.float32))
+        for k in jax.random.split(key, n)])

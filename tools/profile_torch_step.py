@@ -175,6 +175,30 @@ def _busy_us(intervals):
     return total
 
 
+def trace_events(prof):
+    """The complete ("X") events of a finished torch.profiler run, read
+    from its exported chrome trace."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            events = json.load(fh)["traceEvents"]
+    return [e for e in events if e.get("ph") == "X"]
+
+
+def device_counts(events):
+    """Device kernels, stream and device syncs and host-to-device copies
+    among a trace's events (trace_events)."""
+    runtime = [e["name"] for e in events
+               if e.get("cat") in ("cuda_runtime", "cuda_driver")]
+    return {
+        "kernel_launches": sum(e.get("cat") == "kernel" for e in events),
+        "stream_syncs": runtime.count("cudaStreamSynchronize"),
+        "device_syncs": runtime.count("cudaDeviceSynchronize"),
+        "h2d_copies": sum(e.get("cat") == "gpu_memcpy"
+                          and "HtoD" in e["name"] for e in events)}
+
+
 def profile_frames(seq, metric, device, run=None):
     """torch.profiler over frames PROFILED of one run: the device busy
     share and per-frame counts, read from the exported trace.  ``run``
@@ -203,19 +227,13 @@ def profile_frames(seq, metric, device, run=None):
                             device=device, on_frame=on_frame)
     else:
         run(on_frame)
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as fh:
-            events = json.load(fh)["traceEvents"]
-    events = [e for e in events if e.get("ph") == "X"]
+    events = trace_events(prof)
+    counts = device_counts(events)
     n = len(PROFILED)
     wall_us = 1e6 * (window["t1"] - window["t0"])
     device_ev = [e for e in events
                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
     kernels = [e for e in device_ev if e["cat"] == "kernel"]
-    runtime = [e["name"] for e in events
-               if e.get("cat") in ("cuda_runtime", "cuda_driver")]
     by_kernel = {}
     for e in kernels:
         c, us = by_kernel.get(e["name"], (0, 0.0))
@@ -226,12 +244,7 @@ def profile_frames(seq, metric, device, run=None):
         "wall_ms_per_frame": wall_us / 1e3 / n,
         "device_busy_share": _busy_us(
             (e["ts"], e["ts"] + e["dur"]) for e in device_ev) / wall_us,
-        "kernel_launches_per_frame": len(kernels) / n,
-        "stream_syncs_per_frame": runtime.count("cudaStreamSynchronize") / n,
-        "device_syncs_per_frame": runtime.count("cudaDeviceSynchronize") / n,
-        "h2d_copies_per_frame": sum(
-            e["cat"] == "gpu_memcpy" and "HtoD" in e["name"]
-            for e in device_ev) / n,
+        **{f"{k}_per_frame": v / n for k, v in counts.items()},
         "top_kernels_ms_per_frame": [
             {"name": name[:80], "launches": c / n, "ms": us / 1e3 / n}
             for name, (c, us) in top],

@@ -106,3 +106,11 @@ def sim3_verify_gumbel(seed: int, q: int, shape):
     """The mono loop's Sim(3) verification draws of query keyframe q:
     fold_in(fold_in(key, 1_000_003), q), sampled directly."""
     return gumbel(fold_in(fold_in(prng_key(seed), 1_000_003), q), shape)
+
+
+def window_gumbel(seed: int, w: int, T_w: int, shape):
+    """The draws of window w of the windowed BA (a window of T_w frames):
+    fold_in(w) -> split(T_w - 1) -> gumbel each, stacked as
+    (T_w - 1, *shape)."""
+    keys = split(fold_in(prng_key(seed), w), T_w - 1)
+    return np.stack([gumbel(k, shape) for k in keys])
