@@ -116,7 +116,44 @@ Phases, each of which exits non-zero on failure:
      --loop-closure, on a mini KITTI tree with checkpoints and the default
      --device cuda (the CLI's main in this process), each resumed from its
      next-to-last snapshot with the same poses, and --keep-on-failure with
-     --ba-window refused (a non-zero exit).
+     --ba-window refused (a non-zero exit);
+ 19. the matcher variants: 20-frame streaming runs on the phase-4
+     sequence under metric l2q8, banded l2 and banded l2q8, each with the
+     JAX run's solved count and within the ATE bound of its ATE; on frame
+     1's three problems the banded matcher's indices equal the dense
+     path's except on distance ties (bit-exact under l2q8, within rtol
+     1e-6 under l2), counted and printed; the l2q8 cross term equals the
+     int64 product; the l2 and l2q8 routes timed with CUDA events;
+ 20. the tensor-parallel matcher on frame 1's stereo (with F) and
+     temporal problems at (1280, 1280, 128), l1, with model = 1, 2 and 4
+     entries of cuda:0: equal to match_descriptors bit for bit, k launches
+     of kernel #1 a problem; #1 timed at the shard shape (1280 x 320, 128)
+     beside its bound, plain version and torch.cdist(p=1);
+ 21. run_sharded_odometry on 21 KITTI-size frames over data = 4 entries
+     of cuda:0 under dense l1, fused, sweep and dense l2: each chunk's ok
+     flags equal the streaming run's on the same draws and its motions are
+     within 5e-6 of them, the entry point's poses equal its chunks
+     stitched, 2 launches of the route's kernels a chunk; one process of
+     run_sharded_odometry_multihost equals run_sharded_odometry; the
+     kernels against their plain versions, and timed, on chunk 0's
+     stereo (6, 1280, 128) and temporal (10, 1280, 128) problems;
+ 22. run_pipelined_odometry and StreamPipeline on [cuda:0, cuda:0] (a
+     CUDA stream a stage), 20 frames under each backend: equal to
+     run_stereo_sequence bit for bit, one launch of the route's kernels a
+     frame; frames/s of the three beside each other (not a gate);
+ 23. sharded_bundle_adjust on the first window of phase 15 with the
+     landmark axis over 4 entries of cuda:0: poses within 1e-4 and
+     landmarks within 1e-3 of bundle_adjust, under
+     torch.cuda.set_sync_debug_mode("error"); both timed;
+ 24. jit_multistream_sharded: 4 streams over 2 entries of cuda:0 for 6
+     steps under each backend (l1), every state and output equal to the
+     unsharded step bit for bit, one launch of the route's kernels an
+     entry a step; the kernels against their plain versions, and timed,
+     on an entry's 6 problems (2 streams x 3); `cli kitti --metric
+     l2q8` with the VISO_* variables unset (where PIL imports); and two
+     processes on cuda:0 joined by VISO_* over localhost (gloo), each with
+     a timeout, running run_sharded_odometry_multihost on 9 KITTI-size
+     frames, both equal to the one-process run bit for bit.
 
 The line before the last is the kernel table as JSON: per kernel its
 launches on the main path, its time beside its bound (the larger of the
@@ -132,7 +169,15 @@ runs (`loop_launches`, phase 11 under the kernel's backend;
 (8, 1280, 128) and (14, 1280, 128) with the launches of phase 15's run
 under the kernel's backend (`ba_launches`, two a window; each shape's
 `launches` counted per call of the batched matcher) and of phase 17's
-(`ba_loop_launches`, the sweep's kernels).  The sweep's
+(`ba_loop_launches`, the sweep's kernels), and the launches of the
+parallel paths: `tp_launches` (phase 20, kernel #1; null for the
+kernels phase 20 does not run), `chunk_launches` (phase 21 under the
+kernel's backend), `pp_launches` (phase 22's staged run) and
+`sharded_serve_launches` (phase 24 under the kernel's backend), with
+rows (`path` names them) at kernel #1's shard shape (1, 1280, 320, 128)
+with phase 20's launches at model = 4, at the chunk's shapes (6, 1280,
+128) and (10, 1280, 128) with phase 21's launches of each shape, and at
+a serving entry's (6, 1280, 128) with phase 24's.  The sweep's
 entry is its whole route
 (`ms`: order kernel and sweep kernel, `order_ms` and `sweep_ms` each
 alone, `fused_ms` kernel #2 in the same turns, `route_launches` by
@@ -145,6 +190,7 @@ script's wall time is printed before it.  The last line is
 {"ok": true, "device": {...}}.
 """
 
+import contextlib
 import json
 import math
 import os
@@ -332,6 +378,31 @@ JAX_BA_LOOP = {
     "end_ba_m": 0.09881708025932312, "end_opt_m": 0.05271231755614281}
 BA_LOOP_ATE_BOUND = max(1.5 * JAX_BA_LOOP["ate_opt_m"],
                         JAX_BA_LOOP["ate_opt_m"] + 0.02)
+# Phase 19: the JAX package's (solved frames, ATE [m]) on the phase-4
+# sequence under the matcher variants, (metric, banded) -> record,
+# computed on the CPU with:
+#   python -c "import jax; jax.config.update('jax_platforms', 'cpu')
+#   import dataclasses
+#   from libviso_tpu.config import PipelineConfig
+#   from libviso_tpu.pipeline import run_stereo_sequence
+#   from libviso_tpu.synthetic import generate_sequence
+#   from libviso_tpu.utils.metrics import ate_rmse
+#   s = generate_sequence(num_frames=20, num_points=900, seed=0, width=1241,
+#       height=376, f=718.856, base=0.5371657, speed=0.8)
+#   for m, b in (('l2q8', False), ('l2', True), ('l2q8', True)):
+#       c = PipelineConfig().with_metric(m)
+#       c = dataclasses.replace(c, stereo_match=dataclasses.replace(
+#           c.stereo_match, banded=b))
+#       r = run_stereo_sequence(s.frames, s.P1, s.P2, c, seed=0)
+#       print(m, b, r.frame_ok.sum(), ate_rmse(r.poses, s.gt_poses))"
+JAX_VARIANTS = {("l2q8", False): (19, 0.05176869407296181),
+                ("l2", True): (19, 0.05140608176589012),
+                ("l2q8", True): (19, 0.05176869407296181)}
+KITTI_LAYOUT = (24, 5, 10, 1280)   # (nbinx, nbiny, k, slots): 51 px strips
+SHARD_SHAPE = (1, 1280, 320, 128)  # kernel #1 on a model=4 shard: P, N1, N2, D
+CHUNK_SEQUENCE = {**KITTI_SEQUENCE, "num_frames": 21}   # phase 21
+CHUNK_SHAPES = ((6, 1280, 128), (10, 1280, 128))   # a chunk's two calls
+ENTRY_SHAPE = (6, 1280, 128)   # a sharded serving entry: 2 streams x 3
 KEYS = ("ok", "num_lr", "num_circle", "num_inliers")
 STATS = ("frame", "ok", "num_kp1", "num_lr", "num_circle", "num_inliers")
 SERVE_LENGTHS = (20, 20, 16, 12)   # streams of seeds 0..3
@@ -367,7 +438,7 @@ def device_phase():
     print(f"[device] {name}, {count} visible, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}")
     print(smi)
-    return name, count
+    return name, count, smi
 
 
 def build_phase():
@@ -1562,7 +1633,8 @@ def kernel_shapes_phase(tag, problems, seed0):
     path, on integer descriptors and on the path's real problems
     (``problems``: {shape: (label, the match_problem_batch arguments of
     the kernels, Sampson threshold, radius)}), and timed on the real ones.
-    Phase 12 (the loop shapes) and phase 16 (the BA window's).  Returns
+    Phase 12 (the loop shapes), phase 16 (the BA window's), and phases 21
+    and 24 (the chunk's and the serving entry's).  Returns
     {shape: {kernel: row of the kernels line}} and the max abs error per
     kernel."""
     import torch
@@ -1905,6 +1977,45 @@ def loop_cli_phase():
     shutil.rmtree(home)
 
 
+@contextlib.contextmanager
+def _capturing(module, label):
+    """Within the block, module.match_problem_batch records the first
+    call's arguments of each shape as kernel_shapes_phase takes them,
+    {shape: (label(arguments), kernel arguments, Sampson threshold,
+    radius)}, and each shape's launches by kernel, {shape: {kernel: n}}.
+    Yields the two dicts."""
+    import inspect
+
+    real = module.match_problem_batch
+    sig = inspect.signature(real)
+    problems, per_shape = {}, {}
+
+    def capture(*args, **kw):
+        a = sig.bind(*args, **kw).arguments
+        shape = tuple(a["q_d"].shape)
+        if shape not in problems:
+            B = shape[0]
+            problems[shape] = (
+                label(a),
+                [a[k] for k in ("q_xy", "q_valid", "q_d", "t_xy", "t_valid",
+                                "t_d")]
+                + [a["F"].expand(B, 3, 3).contiguous(),
+                   a["use_epi"].expand(B).contiguous()],
+                a["sampson_thresh"], a["radius"])
+        before = read_launches()
+        out = real(*args, **kw)
+        row = per_shape.setdefault(shape, dict.fromkeys(KERNELS, 0))
+        for k, n in read_launches().items():
+            row[k] += n - before[k]
+        return out
+
+    module.match_problem_batch = capture
+    try:
+        yield problems, per_shape
+    finally:
+        module.match_problem_batch = real
+
+
 def _window_draws(cfg):
     """The JAX package's window draws (tools/threefry.py): the port's
     ``draws(w, n)`` seam."""
@@ -1951,27 +2062,10 @@ def ba_phase(seq):
     gt = seq.gt_poses
     T = len(seq.frames)
     problems = {}
-    per_shape = {}   # {shape: {kernel: launches}} of the current run
-    real_match = batched.match_problem_batch
 
-    def capture(*args, **kw):
-        # the first window's stereo and temporal problems, and each call's
-        # launches by the wrappers' counts
-        shape = tuple(args[2].shape)
-        if shape in BA_SHAPES and shape not in problems:
-            B = shape[0]
-            label = "stereo" if kw["use_epi"].any() else "temporal"
-            problems[shape] = (
-                f"{label} problems of window 0",
-                [*args, kw["F"].expand(B, 3, 3).contiguous(),
-                 kw["use_epi"].contiguous()],
-                kw["sampson_thresh"], kw["radius"])
-        before = read_launches()
-        out = real_match(*args, **kw)
-        row = per_shape.setdefault(shape, dict.fromkeys(KERNELS, 0))
-        for k, n in read_launches().items():
-            row[k] += n - before[k]
-        return out
+    def problem_label(a):
+        kind = "stereo" if bool(a["use_epi"].any()) else "temporal"
+        return f"{kind} problems of window 0"
 
     def timed(fn, ms):
         # fn with a sync before and after, its wall ms appended to ms
@@ -1987,7 +2081,6 @@ def ba_phase(seq):
     launches, shape_launches, runs = {}, {s: {} for s in BA_SHAPES}, {}
     real_build = windowed.build_batched_odometry
     real_refine = windowed.refine_window_motions
-    batched.match_problem_batch = capture
     try:
         for backend, gate in (("dense", True), ("fused", True),
                               ("sweep", True), ("dense", False)):
@@ -2007,11 +2100,13 @@ def ba_phase(seq):
                     return out
                 windowed.refine_window_motions = refine
             reset_launches()
-            per_shape.clear()
-            res = windowed.run_windowed_ba(
-                seq.frames, seq.P1, seq.P2, cfg,
-                ba=BAConfig(**BA_WINDOW, gate=gate), backend=backend,
-                device="cuda", draws=draws)
+            # the first window's problems, and each call's launches
+            with _capturing(batched, problem_label) as (seen, per_shape):
+                res = windowed.run_windowed_ba(
+                    seq.frames, seq.P1, seq.P2, cfg,
+                    ba=BAConfig(**BA_WINDOW, gate=gate), backend=backend,
+                    device="cuda", draws=draws)
+            problems = problems or seen
             counts = read_launches()
             n_win = len(res.window_costs)
             ref = JAX_BA[gate]
@@ -2076,7 +2171,6 @@ def ba_phase(seq):
                      f"; the refinement's device kernels and stream syncs "
                      f"per window (torch.profiler): {counted}"))
     finally:
-        batched.match_problem_batch = real_match
         windowed.build_batched_odometry = real_build
         windowed.refine_window_motions = real_refine
     for backend in ("fused", "sweep"):
@@ -2236,6 +2330,649 @@ def ba_cli_phase():
     shutil.rmtree(home)
 
 
+def _variant_cfg(metric, banded):
+    import dataclasses
+
+    from libviso_torch.config import PipelineConfig
+
+    cfg = PipelineConfig().with_metric(metric)
+    return dataclasses.replace(cfg, stereo_match=dataclasses.replace(
+        cfg.stereo_match, banded=banded))
+
+
+def _timed_run(fn):
+    """(result, frames/s over frames 2..T-1) of a run_stereo_sequence-like
+    call given its on_frame callback."""
+    import torch
+
+    ends = []
+
+    def on_frame(t, out):
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+
+    res = fn(on_frame)
+    return res, (len(ends) - 2) / (ends[-1] - ends[1])
+
+
+def variants_phase(seq):
+    """Phase 19: the matcher variants at KITTI width.  Returns the times
+    of the variant routes."""
+    import torch
+
+    from libviso_torch.config import PipelineConfig
+    from libviso_torch.ops import matching as mt
+    from libviso_torch.pipeline.stereo import match_layout, run_stereo_sequence
+    from libviso_torch.utils.metrics import ate_rmse
+
+    for (metric, banded), (jax_solved, jax_ate) in JAX_VARIANTS.items():
+        cfg = _variant_cfg(metric, banded)
+        res, fps = _timed_run(lambda cb: run_stereo_sequence(
+            seq.frames, seq.P1, seq.P2, cfg, seed=0, device="cuda",
+            on_frame=cb))
+        solved = int(res.frame_ok.sum())
+        ate = ate_rmse(res.poses, seq.gt_poses)
+        bound = max(1.5 * jax_ate, jax_ate + 0.02)
+        label = f"{metric}{' banded' if banded else ''}"
+        print(f"[variants] {label}: solved {solved}/20, ATE {ate} m "
+              f"(JAX {jax_ate} m, bound {bound} m), {fps:.2f} frames/s")
+        check(solved == jax_solved, f"{label}: solved {solved}, JAX "
+              f"{jax_solved}")
+        check(ate <= bound, f"{label}: ATE {ate} m above {bound} m")
+
+    # frame 1's three problems against frame 0 (float descriptors)
+    p = _match_problems([seq], 1, integer=False)
+    layout = match_layout(_variant_cfg("l2", True), 1241)
+    check(layout == KITTI_LAYOUT, f"layout {layout}")
+    band = mt.band_of(layout, "l2", 80.0, 1241, 1280)
+    check(band == 2, f"band {band} at KITTI width, not 2")
+    sm, tm = PipelineConfig().stereo_match, PipelineConfig().temporal_match
+    flags = dict(
+        use_epi=p["use_epi"],
+        use_rat=torch.tensor([sm.use_ratio, tm.use_ratio, tm.use_ratio],
+                             device="cuda"),
+        ratios=torch.tensor([sm.ratio, tm.ratio, tm.ratio], device="cuda"),
+        radius=sm.radius, sampson_thresh=sm.sampson_thresh, F=p["F"],
+        image_width=1241)
+    args = [p[k] for k in ("q_xy", "q_valid", "q_d", "t_xy", "t_valid",
+                           "t_d")]
+
+    def match(metric, lay):
+        return mt.match_problem_batch(*args, metric=metric, layout=lay,
+                                      **flags)
+
+    times = {}
+    for metric in ("l2", "l2q8"):
+        b, d = match(metric, layout), match(metric, None)
+        check(torch.equal(b.valid, d.valid),
+              f"banded {metric}: validity differs from dense")
+        diff = b.idx != d.idx
+        dd = mt.descriptor_distances(p["q_d"], p["t_d"], metric)
+        pick = lambda r: dd.gather(  # noqa: E731
+            -1, r.idx.clamp(min=0)[..., None])[..., 0][diff]
+        pb, pd = pick(b), pick(d)
+        exact = int((pb == pd).sum())
+        if metric == "l2q8":
+            check(exact == len(pb), f"banded l2q8: {len(pb) - exact} rows "
+                  f"differ from dense without an exact tie")
+        else:
+            check(bool(((pb - pd).abs() <= 1e-6 * pd).all()),
+                  "banded l2: a differing row is no tie within rtol 1e-6")
+        print(f"[variants] banded {metric} == dense on the frame's 3 "
+              f"problems: {int(d.valid.sum())} matches, "
+              f"{int(diff.sum())} rows differ, each a distance tie "
+              f"({exact} bit-exact)")
+        times[metric] = {
+            "distances_ms": _time_ms(lambda m=metric: mt.descriptor_distances(
+                p["q_d"], p["t_d"], m)),
+            "dense_ms": _time_ms(lambda m=metric: match(m, None)),
+            "banded_ms": _time_ms(lambda m=metric: match(m, layout))}
+    qa, qb = mt.quantize_q8(p["q_d"]), mt.quantize_q8(p["t_d"])
+    cross = mt.q8_cross(qa, qb)
+    exact = torch.matmul(qa.cpu().long(), qb.cpu().long().transpose(-1, -2))
+    check(torch.equal(cross.cpu().long(), exact)
+          and bool((cross == cross.round()).all()),
+          "the l2q8 cross term differs from the int64 product")
+    print(f"[variants] l2q8 cross term == the int64 product on (3, 1280, "
+          f"128) x (3, 1280, 128) (max |cross| {int(exact.abs().max())})")
+    for metric, t in times.items():
+        print(f"[variants] {metric} at (3, 1280, 128): distances "
+              f"{t['distances_ms']:.4f} ms, dense match "
+              f"{t['dense_ms']:.4f} ms, banded match {t['banded_ms']:.4f} ms "
+              f"per call")
+    return times
+
+
+def tp_phase(seq):
+    """Phase 20: the tensor-parallel matcher on a real frame's stereo and
+    temporal problems at (1280, 1280, 128), l1, model = 1, 2, 4 entries of
+    cuda:0.  Returns (kernel #1's launches in phase 20's tensor-parallel
+    calls, its row at the shard shape with its launches at model = 4)."""
+    import torch
+
+    from libviso_torch.config import PipelineConfig
+    from libviso_torch.ops import cuda_matching as cm
+    from libviso_torch.ops.features import Keypoints
+    from libviso_torch.ops.matching import match_descriptors
+    from libviso_torch.parallel import make_mesh, tp_match_descriptors
+
+    p = _match_problems([seq], 1, integer=True)
+    cfg = PipelineConfig().with_metric("l1")
+
+    def kp(side, i):
+        v = p[f"{side}_valid"][i]
+        return Keypoints(xy=p[f"{side}_xy"][i],
+                         response=torch.zeros(v.shape, device="cuda"),
+                         valid=v)
+
+    problems = {
+        "stereo": (kp("q", 0), p["q_d"][0], kp("t", 0), p["t_d"][0],
+                   cfg.stereo_match, p["F"][0]),
+        "temporal": (kp("q", 1), p["q_d"][1], kp("t", 1), p["t_d"][1],
+                     cfg.temporal_match, None)}
+    local = {k: match_descriptors(*v[:5], F=v[5])
+             for k, v in problems.items()}
+    reset_launches()
+    shard_launches = 0   # kernel #1's launches at the shard shape
+    for k in (1, 2, 4):
+        mesh = make_mesh(n_data=1, n_model=k, devices=["cuda:0"] * k)
+        for label, (kp1, d1, kp2, d2, mc, F) in problems.items():
+            before = read_launches()["l1_distance_matrix"]
+            got = tp_match_descriptors(mesh, kp1, d1, kp2, d2, mc, F=F)
+            n = read_launches()["l1_distance_matrix"] - before
+            check(n == k, f"tp {label} model={k}: {n} launches, not {k}")
+            if k == 4:
+                shard_launches += n
+            check(all(torch.equal(a, b) for a, b in zip(got, local[label])),
+                  f"tp {label} model={k} differs from match_descriptors")
+        print(f"[tp] model={k}: stereo (F) and temporal == "
+              f"match_descriptors bit for bit, {k} launches of kernel #1 a "
+              f"problem ({int(local['stereo'].valid.sum())} and "
+              f"{int(local['temporal'].valid.sum())} matches)")
+    tp_launches = read_launches()["l1_distance_matrix"]
+
+    # kernel #1 at a model=4 shard: (1280 x 320, 128)
+    _, N1, N2, D = SHARD_SHAPE
+    a, b = p["q_d"][:1], p["t_d"][:1, :N2]
+    check(torch.equal(cm.l1_distance_matrix(a, b),
+                      cm.l1_distance_matrix_plain(a, b)),
+          "kernel #1 != plain at the shard shape")
+    fns = {"plain": lambda: cm.l1_distance_matrix_plain(a, b),
+           "kernel": lambda: cm.l1_distance_matrix(a, b),
+           "library": lambda: torch.cdist(a, b, p=1)}
+    ms = {k: [] for k in fns}
+    for k in list(fns) + list(fns)[::-1]:
+        ms[k].append(_time_ms(fns[k]))
+    t = {k: sum(v) / 2 for k, v in ms.items()}
+    bound, by = bound_ms(2 * N1 * N2 * D, 4 * (N1 * D + N2 * D + N1 * N2))
+    print(f"[tp] kernel #1 at the shard shape {SHARD_SHAPE[1:]}: "
+          f"{t['kernel']:.4f} ms {ms['kernel']}, bound {bound:.4f} ms ({by}, "
+          f"share {bound / t['kernel']:.3f}); plain {t['plain']:.4f} ms; "
+          f"torch.cdist(p=1) {t['library']:.4f} ms")
+    row = {"ms": t["kernel"], "plain_ms": t["plain"],
+           "library_ms": t["library"], "bound_ms": bound, "bound_by": by,
+           "share_of_bound": bound / t["kernel"],
+           "path": "tensor-parallel shard (model = 4)",
+           "launches": shard_launches}
+    return tp_launches, row
+
+
+def chunk_phase():
+    """Phase 21: run_sharded_odometry on 21 KITTI-size frames over data =
+    4 entries of cuda:0 under each backend.  Returns each kernel's
+    launches in the entry point's run under its backend, in all and per
+    shape ({shape: {kernel: launches}}), and chunk 0's two match problems
+    as kernel_shapes_phase takes them."""
+    import torch
+
+    from libviso_torch.config import Calib, PipelineConfig
+    from libviso_torch.geometry.mvg import F_from_P_host
+    from libviso_torch.parallel import (
+        build_chunk_odometry,
+        chunk_frames_with_halo,
+        host_chunk_assignment,
+        make_mesh,
+        run_sharded_odometry,
+        run_sharded_odometry_multihost,
+        stitch_chunk_motions,
+    )
+    from libviso_torch.pipeline import batched
+    from libviso_torch.pipeline.stereo import run_stereo_sequence
+    from libviso_torch.solvers.ransac import frame_generator, sample_gumbel
+    from libviso_torch.synthetic import generate_sequence
+    from libviso_torch.utils.metrics import ate_rmse
+
+    seq = generate_sequence(**CHUNK_SEQUENCE)
+    T = len(seq.frames)
+    left = np.stack([f[0] for f in seq.frames])
+    right = np.stack([f[1] for f in seq.frames])
+    ims1, ims2, n_valid = chunk_frames_with_halo(left, right, 4)
+    per = ims1.shape[1] - 1
+    cfg0 = PipelineConfig()
+    shape = (cfg0.ransac.num_hypotheses, cfg0.detector.num_slots)
+
+    def g(t):   # the streaming run's draws
+        return sample_gumbel(shape, frame_generator(0, t))
+
+    def chunk_draws(c, n):
+        return torch.stack([g(c * per + j) for j in range(1, n + 1)])
+
+    mesh = make_mesh(n_data=4, devices=["cuda:0"] * 4)
+    calib = Calib.from_projections(seq.P1, seq.P2)
+    F = torch.as_tensor(F_from_P_host(seq.P1, seq.P2), dtype=torch.float32,
+                        device="cuda")
+    launches, problems = {}, {}
+    shape_launches = {s: {} for s in CHUNK_SHAPES}
+
+    def problem_label(a):
+        kind = "stereo" if bool(a["use_epi"].any()) else "temporal"
+        return f"{kind} problems of chunk 0"
+
+    for backend, metric in (("dense", "l1"), ("fused", "l1"),
+                            ("sweep", "l1"), ("dense", "l2")):
+        cfg = cfg0.with_metric(metric)
+        label = f"{backend} {metric}"
+        stream = run_stereo_sequence(seq.frames, seq.P1, seq.P2, cfg,
+                                     device="cuda", backend=backend,
+                                     draws=g)
+        fn = build_chunk_odometry(calib, F, cfg, backend=backend)
+        trs, oks, worst = [], [], 0.0
+        for c in range(4):
+            tr, ok = fn(torch.as_tensor(ims1[c], device="cuda"),
+                        torch.as_tensor(ims2[c], device="cuda"),
+                        chunk_draws(c, per).cuda())
+            trs.append(tr)
+            oks.append(ok)
+            n = int(n_valid[c])
+            rows = slice(c * per + 1, c * per + 1 + n)
+            check(np.array_equal(ok[1:1 + n].cpu().numpy(),
+                                 stream.frame_ok[rows]),
+                  f"chunk {c} ({label}): ok flags differ from streaming")
+            worst = max(worst, float(np.abs(tr[1:1 + n].cpu().numpy()
+                                            - stream.motions[rows]).max()))
+        check(worst <= 5e-6, f"{label}: chunk motions differ from the "
+              f"streaming run's by {worst}")
+        want, keep = stitch_chunk_motions(torch.stack(trs), torch.stack(oks),
+                                          torch.as_tensor(n_valid,
+                                                          device="cuda"))
+        want = want[keep].cpu().numpy()
+        reset_launches()
+        with _capturing(batched, problem_label) as (seen, per_shape):
+            t0 = time.perf_counter()
+            poses, _ = run_sharded_odometry(mesh, seq.P1, seq.P2, left,
+                                            right, cfg, backend=backend,
+                                            draws=chunk_draws)
+            wall = time.perf_counter() - t0
+        counts = read_launches()
+        kernels = BACKEND_KERNELS[backend] if metric == "l1" else ()
+        for k in KERNELS:
+            check(counts[k] == (8 if k in kernels else 0),
+                  f"{label}: {k} launched {counts[k]} times in 4 chunks")
+        check(set(per_shape) == set(CHUNK_SHAPES),
+              f"{label}: match problems of the shapes {sorted(per_shape)}, "
+              f"not {CHUNK_SHAPES}")
+        if metric == "l1":
+            launches.update({k: counts[k] for k in kernels})
+            for sh in CHUNK_SHAPES:
+                for k in kernels:
+                    check(per_shape[sh][k] == 4, f"{label}: {k} launched "
+                          f"{per_shape[sh][k]} times at {sh} in 4 chunks")
+                    shape_launches[sh][k] = per_shape[sh][k]
+            problems = problems or seen
+        check(np.array_equal(poses, want),
+              f"{label}: run_sharded_odometry != its chunks stitched")
+        print(f"[chunk] {label}: 4 chunks of {per + 1} frames, each chunk's "
+              f"ok flags == streaming, motions within {worst} of it; "
+              f"{[counts[k] for k in kernels]} launches of the route's "
+              f"kernels (2 a chunk); {T} frames in {wall:.3f} s; ATE "
+              f"{ate_rmse(poses, seq.gt_poses)} m (streaming "
+              f"{ate_rmse(stream.poses, seq.gt_poses)} m)")
+        if (backend, metric) == ("dense", "l1"):
+            plan = host_chunk_assignment(T, 4, 0, 1)
+            span = slice(plan["frame_start"], plan["frame_stop"])
+            multi, _ = run_sharded_odometry_multihost(
+                mesh, seq.P1, seq.P2, left[span], right[span], T, cfg,
+                backend=backend, draws=chunk_draws)
+            check(np.array_equal(multi, poses),
+                  "run_sharded_odometry_multihost (1 process) != "
+                  "run_sharded_odometry")
+            print("[chunk] run_sharded_odometry_multihost in one process "
+                  "== run_sharded_odometry bit for bit")
+    return launches, shape_launches, problems
+
+
+def staged_phase(seq, whole):
+    """Phase 22: run_pipelined_odometry and StreamPipeline on [cuda:0,
+    cuda:0] (two CUDA streams), l1, each backend, against the serial run.
+    Returns each kernel's launches in the staged run under its backend."""
+    import torch
+
+    from libviso_torch.config import PipelineConfig
+    from libviso_torch.parallel import make_pipe_mesh, run_pipelined_odometry
+    from libviso_torch.parallel.pp_odometry import StreamPipeline
+    from libviso_torch.pipeline.stereo import run_stereo_sequence
+
+    cfg = PipelineConfig().with_metric("l1")
+    mesh = make_pipe_mesh(["cuda:0", "cuda:0"])
+    left = np.stack([f[0] for f in seq.frames])
+    right = np.stack([f[1] for f in seq.frames])
+    launches = {}
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    for backend in BACKEND_KERNELS:
+        def serial():
+            return run_stereo_sequence(seq.frames, seq.P1, seq.P2, cfg,
+                                       device="cuda", backend=backend)
+
+        def staged():
+            return run_pipelined_odometry(mesh, seq.P1, seq.P2, left, right,
+                                          cfg, backend=backend)
+
+        def stream():
+            sp = StreamPipeline(seq.P1, seq.P2, cfg,
+                                devices=["cuda:0", "cuda:0"],
+                                backend=backend)
+            outs = [sp.push(a, b) for a, b in seq.frames][1:] + [sp.flush()]
+            return (np.stack([o.tr.cpu().numpy() for o in outs]),
+                    np.array([bool(o.ok) for o in outs]))
+
+        want = whole if backend == "dense" else serial()
+        reset_launches()
+        (poses, motions, ok), _ = wall(staged)
+        counts = read_launches()
+        for k in BACKEND_KERNELS[backend]:
+            check(counts[k] == len(seq.frames),
+                  f"staged {backend}: {k} launched {counts[k]} times")
+            launches[k] = counts[k]
+        check(np.array_equal(motions, want.motions)
+              and np.array_equal(ok, want.frame_ok)
+              and np.array_equal(poses, want.poses),
+              f"staged {backend} != serial")
+        (s_motions, s_ok), _ = wall(stream)
+        s_ok[0] = False
+        check(np.array_equal(s_motions, want.motions)
+              and np.array_equal(s_ok, want.frame_ok),
+              f"StreamPipeline {backend} != serial")
+        # frames/s in turns: serial, staged, stream, stream, staged, serial
+        secs = {"serial": [], "staged": [], "stream": []}
+        fns = {"serial": serial, "staged": staged, "stream": stream}
+        for k in list(fns) + list(fns)[::-1]:
+            secs[k].append(wall(fns[k])[1])
+        fps = {k: len(seq.frames) * 2 / sum(v) for k, v in secs.items()}
+        print(f"[staged] {backend}: run_pipelined_odometry and "
+              f"StreamPipeline on [cuda:0, cuda:0] == run_stereo_sequence "
+              f"bit for bit; {launches[BACKEND_KERNELS[backend][0]]} "
+              f"launches in 20 frames; frames/s over the whole run "
+              f"(2 rounds in turns): serial {fps['serial']:.2f}, staged "
+              f"{fps['staged']:.2f}, StreamPipeline {fps['stream']:.2f}")
+    return launches
+
+
+def sharded_ba_phase(seq):
+    """Phase 23: the first window of phase 15 (frames 0-7, l1, JAX's
+    window draws) with the landmark axis over model = 4 entries of
+    cuda:0, against bundle_adjust; no host sync."""
+    import torch
+
+    from libviso_torch.config import BAConfig, Calib, PipelineConfig
+    from libviso_torch.geometry.mvg import F_from_P_host
+    from libviso_torch.parallel import make_mesh, sharded_bundle_adjust
+    from libviso_torch.pipeline.batched import build_batched_odometry
+    from libviso_torch.pipeline.refine import build_window_problem
+    from libviso_torch.solvers.bundle_adjust import bundle_adjust
+    from libviso_torch.solvers.gauss_newton import stereo_predict
+
+    cfg = PipelineConfig().with_metric("l1")
+    calib = Calib.from_projections(seq.P1, seq.P2)
+    F = torch.as_tensor(F_from_P_host(seq.P1, seq.P2), dtype=torch.float32,
+                        device="cuda")
+    W = BA_WINDOW["window"]
+    ims = [torch.as_tensor(np.stack([f[v] for f in seq.frames[:W]]),
+                           device="cuda") for v in (0, 1)]
+    front = build_batched_odometry(calib, F, cfg, with_tracks=True)
+    out, tr = front(*ims, _window_draws(cfg)(0, W - 1).cuda())
+    prob = build_window_problem(
+        tr.kp1_xy, tr.kp2_xy, tr.mlr_idx, tr.mlr_valid, tr.m11_idx,
+        tr.m11_valid, tr.X, out.motions, cfg.detector.num_slots,
+        circ_valid=tr.circ_valid)
+    mask = prob.mask & (prob.mask.sum(0) >= 2)[None]
+    args = (prob.poses0, prob.X0, prob.obs, mask)
+    iters = BAConfig().iters
+    mesh = make_mesh(n_data=1, n_model=4, devices=["cuda:0"] * 4)
+    ref = bundle_adjust(*args, calib, iters=iters)
+    sharded_bundle_adjust(mesh, *args, calib, iters=iters)   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        res = sharded_bundle_adjust(mesh, *args, calib, iters=iters)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    # the landmarks' sums are added in another order.  Held: the poses
+    # within 1e-4 (JAX's test), the final cost within rtol 1e-4, and every
+    # observation's reprojection within 0.01 px.  Not held: JAX's 1e-3 m
+    # on each landmark.  The window keeps landmarks of near-zero disparity
+    # or short tracks, whose V block is near-singular along the viewing
+    # ray: there the 1e-6 pose difference, back-substituted, moves a
+    # point metres along its ray without moving its reprojection.
+    dp = float((res.poses - ref.poses).abs().max())
+    pr, _ = stereo_predict(res.poses, res.landmarks, calib)
+    pf, _ = stereo_predict(ref.poses, ref.landmarks, calib)
+    dpx = float((pr - pf).abs().amax(-1)[mask].max())
+    dX = (res.landmarks - ref.landmarks).norm(dim=-1)
+    worst = int(dX.argmax())
+    check(dp <= 1e-4, f"sharded BA: poses {dp} from bundle_adjust")
+    check(dpx <= 1e-2, f"sharded BA: a reprojection {dpx} px from "
+          f"bundle_adjust's")
+    check(abs(float(res.cost) - float(ref.cost)) <= 1e-4 * float(ref.cost),
+          f"sharded BA: cost {float(res.cost)} against {float(ref.cost)}")
+    check(float(res.cost) < float(res.initial_cost), "sharded BA: cost rose")
+    print(f"[sharded-ba] window 0 ({W} x {prob.X0.shape[0]}, "
+          f"{int(mask.sum())} observations), landmarks over 4 entries of "
+          f"cuda:0: poses within {dp}, reprojections within {dpx} px of "
+          f"bundle_adjust, cost {float(res.initial_cost):.6f} -> "
+          f"{float(res.cost):.6f} (unsharded {float(ref.cost):.6f}), no "
+          f"host sync; landmarks: {int((dX <= 1e-3).sum())} of {len(dX)} "
+          f"within 1e-3 m, the farthest apart {float(dX[worst]):.4f} m "
+          f"({int(mask[:, worst].sum())} observations, "
+          f"{float(ref.landmarks[worst].norm()):.1f} m away)")
+    fns = {"bundle_adjust": lambda: bundle_adjust(*args, calib, iters=iters),
+           "sharded": lambda: sharded_bundle_adjust(mesh, *args, calib,
+                                                    iters=iters)}
+    ms = {k: [] for k in fns}
+    for k in list(fns) + list(fns)[::-1]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fns[k]()
+        torch.cuda.synchronize()
+        ms[k].append(1e3 * (time.perf_counter() - t0))
+    print(f"[sharded-ba] wall ms per solve in turns: bundle_adjust "
+          f"{ms['bundle_adjust']}, sharded {ms['sharded']}")
+
+
+_MULTIHOST_WORKER = """
+import json
+import sys
+import numpy as np
+from libviso_torch.config import PipelineConfig
+from libviso_torch.parallel import (
+    host_chunk_assignment, make_mesh, run_sharded_odometry_multihost)
+from libviso_torch.parallel.distributed import (
+    describe, initialize_from_env, process_index)
+from libviso_torch.synthetic import generate_sequence
+
+if not (initialize_from_env() and describe()["process_count"] == 2):
+    raise SystemExit("the VISO_* variables did not make a 2-process group")
+seq = generate_sequence(**json.loads(sys.argv[2]))
+T = len(seq.frames)
+plan = host_chunk_assignment(T, 2, process_index(), 2)
+span = slice(plan["frame_start"], plan["frame_stop"])
+poses, _ = run_sharded_odometry_multihost(
+    make_mesh(n_data=2, devices=["cuda:0"] * 2), seq.P1, seq.P2,
+    np.stack([f[0] for f in seq.frames])[span],
+    np.stack([f[1] for f in seq.frames])[span], T,
+    PipelineConfig().with_metric("l1"), seed=0)
+np.save(sys.argv[1], poses)
+"""
+
+
+def _same_bits(a, b):
+    """Equal bit for bit, NaN in the same places included."""
+    import torch
+
+    return a.shape == b.shape and torch.equal(
+        a.view(torch.int32) if a.dtype == torch.float32 else a,
+        b.view(torch.int32) if b.dtype == torch.float32 else b)
+
+
+def sharded_serve_phase(seqs):
+    """Phase 24: jit_multistream_sharded (4 streams over 2 entries of
+    cuda:0) against the unsharded step; cli kitti with the VISO_*
+    variables unset; a two-process gloo run of
+    run_sharded_odometry_multihost on cuda:0.  Returns each kernel's
+    launches in the sharded serving run under its backend, and an entry's
+    match problems as kernel_shapes_phase takes them."""
+    import socket
+
+    import torch
+
+    from libviso_torch.config import Calib, PipelineConfig
+    from libviso_torch.geometry.mvg import F_from_P_host
+    from libviso_torch.ops import matching
+    from libviso_torch.parallel import make_mesh, run_sharded_odometry
+    from libviso_torch.pipeline import multistream as ms
+    from libviso_torch.solvers.ransac import frame_generator, sample_gumbel
+    from libviso_torch.synthetic import generate_sequence
+
+    cfg = PipelineConfig().with_metric("l1")
+    S, steps = 4, 6
+    streams = seqs[:S]
+    calibs = [Calib.from_projections(s.P1, s.P2) for s in streams]
+    F = torch.as_tensor(np.stack([F_from_P_host(s.P1, s.P2)
+                                  for s in streams]), dtype=torch.float32,
+                        device="cuda")
+    mesh = make_mesh(n_data=2, devices=["cuda:0"] * 2)
+    shape = (cfg.ransac.num_hypotheses, cfg.detector.num_slots)
+    launches, problems = {}, {}
+    for backend, kernels in BACKEND_KERNELS.items():
+        plain = ms.build_multistream_step(cfg, backend)
+        sharded = ms.jit_multistream_sharded(mesh, cfg, backend=backend)
+        st_p = st_s = ms.stack_states([ms.empty_state(cfg, "cuda")] * S)
+        reset_launches()
+        for t in range(steps):
+            ims = [torch.as_tensor(np.stack([s.frames[t][v]
+                                             for s in streams]),
+                                   device="cuda") for v in (0, 1)]
+            g = [sample_gumbel(shape, frame_generator(s, t)).cuda()
+                 for s in range(S)]
+            st_p, out_p = plain(calibs, F, st_p, *ims, g)
+            before = read_launches()
+            with _capturing(matching, lambda a: f"problems of a serving "
+                            f"entry at step {t} (2 streams x 3)") as (
+                                seen, per_shape):
+                st_s, out_s = sharded(calibs, F, st_s, *ims, g)
+            check(set(per_shape) == {ENTRY_SHAPE}, f"sharded serving "
+                  f"{backend}: match problems of the shapes "
+                  f"{sorted(per_shape)}, not {ENTRY_SHAPE}")
+            for k, n in read_launches().items():
+                launches[k] = launches.get(k, 0) + n - before[k]
+            if t == 1 and backend == "dense":
+                problems = seen   # step 0's temporal targets are empty
+            check(all(_same_bits(a, b) for a, b in zip(
+                ms.state_leaves(st_p), ms.state_leaves(st_s))),
+                f"sharded serving {backend} step {t}: a state differs")
+            for s_, (op, os_) in enumerate(zip(out_p, out_s)):
+                for name, a, b in zip(op._fields, op, os_):
+                    check(_same_bits(a, b), f"sharded serving {backend} "
+                          f"step {t}, stream {s_}: {name} {a.tolist()} != "
+                          f"{b.tolist()}")
+        for k in kernels:
+            check(launches[k] == 2 * steps, f"sharded serving {backend}: "
+                  f"{launches[k]} launches of {k} in {steps} steps over 2 "
+                  f"entries")
+        print(f"[sharded-serve] jit_multistream_sharded {backend}, {S} "
+              f"streams over 2 entries of cuda:0, {steps} steps: every state "
+              f"and output == the unsharded step bit for bit, "
+              f"{[launches[k] for k in kernels]} launches of "
+              f"{' and '.join(kernels)} (one an entry a step)")
+
+    for var in ("VISO_COORDINATOR", "VISO_NUM_PROCESSES", "VISO_PROCESS_ID"):
+        os.environ.pop(var, None)
+    try:
+        import PIL  # noqa: F401
+        have_pil = True
+    except ImportError:
+        have_pil = False
+        print("[sharded-serve] PIL does not import here: cli kitti not run")
+    if have_pil:
+        import contextlib
+        import io
+        import shutil
+
+        from libviso_torch import cli
+
+        home = os.path.join(ROOT, "build", "chip_smoke_viso")
+        _write_mini_kitti(home)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli.main(["kitti", "viso", "77", "--kitti-home", home,
+                      "--metric", "l2q8"])
+        out = json.loads(buf.getvalue().strip().splitlines()[-1])
+        check(out["solved"] == 5 and out["device"] == "cuda",
+              f"cli kitti --metric l2q8: {out}")
+        print(f"[sharded-serve] cli kitti --metric l2q8 with VISO_* unset: "
+              f"{json.dumps(out)}")
+        shutil.rmtree(home)
+
+    # two processes on cuda:0, rendezvous over localhost, gloo exchange
+    spec = {**KITTI_SEQUENCE, "num_frames": 9}
+    out_dir = os.path.join(ROOT, "build", "chip_smoke_multihost")
+    os.makedirs(out_dir, exist_ok=True)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for pid in range(2):
+            env = dict(os.environ, VISO_COORDINATOR=f"localhost:{port}",
+                       VISO_NUM_PROCESSES="2", VISO_PROCESS_ID=str(pid),
+                       PYTHONPATH=ROOT)
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", _MULTIHOST_WORKER,
+                 os.path.join(out_dir, f"p{pid}.npy"), json.dumps(spec)],
+                cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
+        logs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for pid, (p, log) in enumerate(zip(procs, logs)):
+        check(p.returncode == 0, f"multihost process {pid} exited "
+              f"{p.returncode}: {log[-2000:]}")
+    seq = generate_sequence(**spec)
+    ref, _ = run_sharded_odometry(
+        mesh, seq.P1, seq.P2, np.stack([f[0] for f in seq.frames]),
+        np.stack([f[1] for f in seq.frames]), cfg, seed=0)
+    for pid in range(2):
+        got = np.load(os.path.join(out_dir, f"p{pid}.npy"))
+        check(np.array_equal(got, ref), f"multihost process {pid} != the "
+              f"one-process run")
+    print(f"[sharded-serve] two processes on cuda:0 (gloo over "
+          f"localhost:{port}), 2 chunks of 5 KITTI-size frames: both == "
+          f"run_sharded_odometry in one process bit for bit ({wall:.1f} s "
+          f"with start-up)")
+    return launches, problems
+
+
 def kernels_line(launches, l1_err, l1_times, serve_launches, fused_err,
                  fused_times, counts):
     """The kernel table: per kernel its main-path launches and, at the
@@ -2309,7 +3046,7 @@ def kernels_line(launches, l1_err, l1_times, serve_launches, fused_err,
 
 def main():
     t_start = time.perf_counter()
-    device_name, count = device_phase()
+    device_name, count, smi = device_phase()
     build_phase()
     l1_err, l1_times = kernel_phase()
 
@@ -2349,6 +3086,17 @@ def main():
     ba_loop_launches = ba_loop_phase(circle)
     ba_cli_phase()
 
+    variants_phase(seq)
+    tp_launches, shard_row = tp_phase(seq)
+    chunk_launches, chunk_shape_launches, chunk_problems = chunk_phase()
+    chunk_rows, chunk_err = kernel_shapes_phase("chunk-kernel",
+                                                chunk_problems, 30)
+    pp_launches = staged_phase(seq, whole)
+    sharded_ba_phase(seq)
+    sharded_serve_launches, entry_problems = sharded_serve_phase(seqs)
+    entry_rows, entry_err = kernel_shapes_phase("entry-kernel",
+                                                entry_problems, 40)
+
     line = kernels_line(launches, l1_err, l1_times, serve_launches,
                         fused_err, fused_times, counts)
     for k in line["kernels"]:
@@ -2360,7 +3108,8 @@ def main():
         k["ba_launches"] = ba_launches.get(kernel)
         k["ba_loop_launches"] = ba_loop_launches.get(kernel)
         k["max_abs_err"] = max(k["max_abs_err"], loop_err[kernel],
-                               ba_err[kernel])
+                               ba_err[kernel], chunk_err[kernel],
+                               entry_err[kernel])
         k["shapes"].append({"shape": list(MONO_SHAPE), **mono_rows[kernel]})
         k["shapes"].append({"shape": list(LOOP_SHAPE),
                             "launches": loop_launches.get(kernel),
@@ -2372,7 +3121,24 @@ def main():
             k["shapes"].append({"shape": list(shape),
                                 "launches": ba_shape_launches[shape][kernel],
                                 **ba_rows[shape][kernel]})
-    print(f"[time] chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
+        # phase 20 runs kernel #1 only
+        k["tp_launches"] = {"l1_distance_matrix": tp_launches}.get(kernel)
+        k["chunk_launches"] = chunk_launches.get(kernel)
+        k["pp_launches"] = pp_launches.get(kernel)
+        k["sharded_serve_launches"] = sharded_serve_launches[kernel]
+        if kernel == "l1_distance_matrix":
+            k["shapes"].append({"shape": list(SHARD_SHAPE), **shard_row})
+        for shape in CHUNK_SHAPES:
+            k["shapes"].append({"shape": list(shape),
+                                "path": "chunked odometry",
+                                "launches": chunk_shape_launches[shape][kernel],
+                                **chunk_rows[shape][kernel]})
+        k["shapes"].append({"shape": list(ENTRY_SHAPE),
+                            "path": "sharded serving entry",
+                            "launches": sharded_serve_launches[kernel],
+                            **entry_rows[ENTRY_SHAPE][kernel]})
+    print(f"[time] chip_smoke.py took {time.perf_counter() - t_start:.1f} s "
+          f"on {smi}")
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name, "count": count}}))

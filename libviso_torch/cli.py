@@ -1,7 +1,7 @@
 """Command-line entry points of the PyTorch port (port of ``libviso_tpu/cli.py``).
 
   python -m libviso_torch.cli synth [--frames N] [--world | --world-loop]
-      [--metric l1|l2]
+      [--metric l1|l2|l2q8]
   python -m libviso_torch.cli kitti RESULT_SHA SEQ[,SEQ...] [BEGIN END]
       [--kitti-home DIR]        (default $KITTI_HOME)
       [--checkpoint-every N] [--save-debug]
@@ -37,7 +37,9 @@ pipeline flags (``--subpixel``, ``--pyramid``, ``--sharpen``,
 ``pipeline/windowed.py``; with ``--loop-closure`` the composed back-end,
 ``pipeline/ba_loop.py``) and the mono Sim(3) back-end (``mono
 --sim3-loop``, ``pipeline/mono_loop.py``) take the JAX CLI's flags and
-print its JSON keys.
+print its JSON keys.  ``kitti`` first joins the process group that the
+``VISO_COORDINATOR``/``VISO_NUM_PROCESSES``/``VISO_PROCESS_ID`` variables
+describe (``parallel/distributed.py``), a no-op when they are unset.
 """
 
 from __future__ import annotations
@@ -56,9 +58,9 @@ def _add_common_flags(parser):
              "CPU runs ask for --device cpu)")
     parser.add_argument(
         "--metric", default=None, choices=["l1", "l2", "l2q8"],
-        help="descriptor distance: l2 (the config default) or l1, the "
-             "reference metric, which runs the hand-written CUDA kernel on "
-             "the card (l2q8 is not ported yet)")
+        help="descriptor distance: l2 (the config default), l2q8 (l2 over "
+             "int8-quantized descriptors) or l1, the reference metric, "
+             "which runs the hand-written CUDA kernel on the card")
     parser.add_argument(
         "--hyp", default=None, choices=["gn", "procrustes"],
         help="RANSAC hypothesis estimator (default procrustes)")
@@ -180,8 +182,10 @@ def _checkpoint_manager(directory, every):
 
 
 def _cmd_kitti(args):
+    from libviso_torch.parallel.distributed import initialize_from_env
     from libviso_torch.pipeline.stereo import run_stereo_sequence
 
+    initialize_from_env()   # the multi-process launch contract
     if args.keep_on_failure and args.ba_window > 0:
         # at the argv edge, before any frame is read
         sys.exit("--keep-on-failure is a streaming-mode feature and "

@@ -5,11 +5,6 @@ Field for field, with the same defaults, the frozen dataclasses of
 default).  The port carries no weights: configuration is what it takes
 over, and ``from_jax_config`` rebuilds any of these classes from an
 instance of its JAX counterpart so both packages run one configuration.
-
-Options the port does not run yet (the banded and 'l2q8' matchers) are
-accepted here, as in the JAX package, and rejected with
-``NotImplementedError`` by the pipeline
-(``pipeline/stereo.py::check_supported``).
 """
 
 from __future__ import annotations

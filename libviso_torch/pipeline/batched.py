@@ -30,7 +30,7 @@ from libviso_torch.geometry.triangulate import triangulate_rectified
 from libviso_torch.ops.circle import circle_filter
 from libviso_torch.ops.features import detect_and_describe
 from libviso_torch.ops.matching import match_problem_batch
-from libviso_torch.pipeline.stereo import check_supported
+from libviso_torch.pipeline.stereo import check_supported, match_layout
 from libviso_torch.solvers.ransac import ransac_pose
 
 
@@ -107,6 +107,8 @@ def build_batched_odometry(calib: Calib, F, cfg: PipelineConfig,
     def fn(ims1, ims2, gumbels):
         T = ims1.shape[0]
         dev = ims1.device
+        width = ims1.shape[-1]
+        layout = match_layout(cfg, width)
         # all 2T detections as one batch
         kps, ds = detect_and_describe(torch.cat([ims1, ims2]), cfg.detector)
         kp1 = type(kps)(*(x[:T] for x in kps))
@@ -126,7 +128,8 @@ def build_batched_odometry(calib: Calib, F, cfg: PipelineConfig,
             ratios=flags(T, stereo_cfg.ratio, d1.dtype),
             radius=stereo_cfg.radius,
             sampson_thresh=stereo_cfg.sampson_thresh,
-            metric=stereo_cfg.metric, F=F, backend=backend)
+            metric=stereo_cfg.metric, F=F, backend=backend, layout=layout,
+            image_width=width)
 
         Tm = 2 * (T - 1)
         tm = match_problem_batch(
@@ -141,7 +144,8 @@ def build_batched_odometry(calib: Calib, F, cfg: PipelineConfig,
             ratios=flags(Tm, temporal_cfg.ratio, d1.dtype),
             radius=temporal_cfg.radius,
             sampson_thresh=temporal_cfg.sampson_thresh,
-            metric=temporal_cfg.metric, F=F, backend=backend)
+            metric=temporal_cfg.metric, F=F, backend=backend,
+            layout=layout, image_width=width)
         m11 = type(tm)(*(x[:T - 1] for x in tm))
         m22 = type(tm)(*(x[T - 1:] for x in tm))
 

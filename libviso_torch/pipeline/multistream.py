@@ -41,6 +41,7 @@ from libviso_torch.pipeline.stereo import (
     empty_state,
     gather_correspondences,
     hold_state_on_failure,
+    match_layout,
     rebuild_state,
     resolve_device,
     sequence_result,
@@ -96,7 +97,9 @@ def build_multistream_step(cfg: PipelineConfig, backend: str = "dense",
         matches = match_frame_triple(        # 3 S problems: one call
             feats.kp1, feats.d1, feats.kp2, feats.d2, states.kp1,
             states.d1, states.kp2, states.d2, cfg.stereo_match,
-            cfg.temporal_match, F, backend=backend)
+            cfg.temporal_match, F, backend=backend,
+            layout=match_layout(cfg, im1s.shape[-1]),
+            image_width=im1s.shape[-1])
         mark("match")
         calib = stream_calib(calibs, device)
         new_states, si, _ = gather_correspondences(calib, feats, states,
@@ -158,10 +161,53 @@ def build_multistream_chunk(cfg: PipelineConfig, chunk: int,
 
 def jit_multistream_sharded(mesh, cfg: PipelineConfig, chunk: int = 1,
                             backend: str = "dense", axis: str = "data"):
-    """The stream axis sharded over several devices: not ported yet."""
-    raise NotImplementedError(
-        "multi-device serving is not ported yet: ROADMAP.md Queue 1 "
-        "item 15 (parallel layer)")
+    """The S-stream step (``chunk`` > 1: the chunked step) with the stream
+    axis split over the mesh's ``axis`` entries.  The name is the JAX
+    package's; nothing is jitted: each entry advances its S/k streams with
+    ``build_multistream_step`` (or ``build_multistream_chunk``) on its own
+    device, and the new states and outputs are put back together in
+    stream order, the states on the first entry's device.  Streams are
+    independent, so nothing crosses a shard but the inputs and the results,
+    and the batch-invariant solve (``solvers/gauss_newton.py``) makes
+    each stream's result equal the unsharded step's bit for bit.
+
+    Returns step(calibs, F, states, im1s, im2s, gumbels) with the
+    signature of the unsharded step; S must be a multiple of the axis
+    size.
+    """
+    devices = mesh.axis_devices(axis)
+    k = len(devices)
+    inner = (build_multistream_chunk(cfg, chunk, backend) if chunk > 1
+             else build_multistream_step(cfg, backend))
+
+    def step(calibs, F, states, im1s, im2s, gumbels):
+        S = len(gumbels)
+        if S % k:
+            raise ValueError(f"{S} streams do not split over the {k} "
+                             f"entries of mesh axis {axis!r}")
+        n = S // k
+        new_states, outs = [], []
+        for i, dev in enumerate(devices):
+            rows = slice(i * n, (i + 1) * n)
+
+            def to(x):
+                return None if x is None else x.to(dev)
+
+            st, out = inner(
+                calibs[rows], F[rows].to(dev),
+                rebuild_state(states, (x[rows].to(dev)
+                                       for x in state_leaves(states))),
+                im1s[rows].to(dev), im2s[rows].to(dev),
+                [[to(x) for x in g] if chunk > 1 else to(g)
+                 for g in gumbels[rows]])
+            new_states.append(st)
+            outs.extend(out)
+        home = devices[0]
+        return rebuild_state(states, (
+            torch.cat([x.to(home) for x in xs]) for xs in zip(
+                *(list(state_leaves(st)) for st in new_states)))), outs
+
+    return step
 
 
 def _default_draws(cfg: PipelineConfig, seeds):

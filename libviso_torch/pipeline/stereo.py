@@ -36,7 +36,7 @@ from libviso_torch.ops.matching import (
     check_match_supported,
     match_frame_triple,
 )
-from libviso_torch.solvers.gauss_newton import stereo_predict
+from libviso_torch.solvers.gauss_newton import _tree_sum, stereo_predict
 from libviso_torch.solvers.ransac import (
     frame_generator,
     ransac_pose,
@@ -107,14 +107,37 @@ class SolveInput(NamedTuple):
 
 
 def check_supported(cfg: PipelineConfig, backend: str = "dense"):
-    """Raise ``NotImplementedError`` for options the port does not run
-    yet (the banded and 'l2q8' matchers), naming the ROADMAP item that
-    ports them, and ``ValueError`` for a matcher backend the metrics
-    cannot take."""
+    """Raise ``ValueError`` for an unknown metric or a matcher backend the
+    metrics cannot take."""
     check_backend(backend, cfg.stereo_match.metric)
     check_backend(backend, cfg.temporal_match.metric)
     check_match_supported(cfg.stereo_match)
     check_match_supported(cfg.temporal_match)
+
+
+def zero_solve_input(cfg: PipelineConfig, device="cpu",
+                     dtype=torch.float32) -> SolveInput:
+    """All-invalid SolveInput: the staged pipeline's bubble, which solves
+    to ok False as an empty first frame does."""
+    n = cfg.detector.num_slots
+    z = torch.zeros((), dtype=torch.long, device=device)
+    return SolveInput(
+        Xp=torch.zeros((n, 3), dtype=dtype, device=device),
+        obs=torch.zeros((n, 4), dtype=dtype, device=device),
+        pts_valid=torch.zeros((n,), dtype=torch.bool, device=device),
+        circ_count=z, num_lr=z, num_kp1=z,
+        sharpness=torch.zeros((), dtype=dtype, device=device))
+
+
+def match_layout(cfg: PipelineConfig, image_width):
+    """(nbinx, nbiny, k, num_slots) for the strip-banded matcher, or None
+    where banding does not apply: no width known, multi-scale detection
+    (whose slot blocks are per level), or ``stereo_match.banded`` off."""
+    det = cfg.detector
+    if (image_width is None or det.pyramid_levels > 1
+            or not cfg.stereo_match.banded):
+        return None
+    return (det.nbinx, det.nbiny, det.corners_per_bin, det.num_slots)
 
 
 def empty_state(cfg: PipelineConfig, device="cpu",
@@ -239,23 +262,30 @@ def gather_correspondences(calib: Calib, feats: Feats, state: FrameState,
     si = SolveInput(
         Xp=take(state.X, lp_safe), obs=obs, pts_valid=pts_valid,
         circ_count=circ.count, num_lr=mlr.valid.sum(-1), num_kp1=n_kp1,
-        sharpness=(torch.where(kp1.valid, kp1.response, 0.0).sum(-1)
+        # a fixed tree of additions: a library sum over (S, N) rounds a
+        # stream's row differently with S, and serving holds each stream
+        # to its own result in any stream batch
+        sharpness=(_tree_sum(torch.where(kp1.valid, kp1.response, 0.0), -1)
                    / torch.clamp(n_kp1, min=1)))
     return new_state, si, circ
 
 
 def build_prepare(calib: Calib, F, cfg: PipelineConfig,
-                  backend: str = "dense"):
+                  backend: str = "dense", image_width=None):
     """prepare(feats, state) -> (new_state, SolveInput, CircleResult):
     matching through correspondence gathering.  ``F`` is the (3, 3)
     fundamental matrix as a tensor on the step's device; ``backend`` the
-    matcher route (``ops/matching.py``)."""
+    matcher route (``ops/matching.py``); ``image_width`` enables the
+    strip-banded matcher where ``match_layout`` admits it (None keeps the
+    dense path)."""
+    layout = match_layout(cfg, image_width)
 
     def prepare(feats: Feats, state: FrameState):
         kp1, d1, kp2, d2 = feats
         matches = match_frame_triple(
             kp1, d1, kp2, d2, state.kp1, state.d1, state.kp2, state.d2,
-            cfg.stereo_match, cfg.temporal_match, F, backend=backend)
+            cfg.stereo_match, cfg.temporal_match, F, backend=backend,
+            layout=layout, image_width=image_width)
         return gather_correspondences(calib, feats, state, *matches)
 
     return prepare
@@ -313,10 +343,12 @@ def hold_state_on_failure(state, new_state, ok, has_history, max_age: int):
 
 
 def build_backend(calib: Calib, F, cfg: PipelineConfig,
-                  backend: str = "dense", debug: bool = False):
+                  backend: str = "dense", debug: bool = False,
+                  image_width=None):
     """backend_fn(feats, state, gumbel) ->
     (new_state, FrameOutput[, FrameDebug])."""
-    prepare = build_prepare(calib, F, cfg, backend=backend)
+    prepare = build_prepare(calib, F, cfg, backend=backend,
+                            image_width=image_width)
     solve = build_solve(calib, cfg, debug=debug)
 
     def backend_fn(feats: Feats, state: FrameState, gumbel):
@@ -346,14 +378,20 @@ def build_frame_step(calib: Calib, F, cfg: PipelineConfig,
 
     ``gumbel`` is the frame's (num_hypotheses, num_slots) RANSAC draw;
     ``backend`` the matcher route: "dense", "fused" or "sweep"; ``debug``
-    adds the tensors the artifact writer needs.
+    adds the tensors the artifact writer needs.  The frame's width reaches
+    the matcher, which bands where ``match_layout`` admits it, as the JAX
+    step does at trace time.
     """
     check_supported(cfg, backend)
     frontend = build_frontend(cfg)
-    backend_fn = build_backend(calib, F, cfg, backend=backend, debug=debug)
+    backends = {}   # one back-end per image width
 
     def step(state: FrameState, im1, im2, gumbel):
-        return backend_fn(frontend(im1, im2), state, gumbel)
+        width = im1.shape[-1]
+        if width not in backends:
+            backends[width] = build_backend(calib, F, cfg, backend=backend,
+                                            debug=debug, image_width=width)
+        return backends[width](frontend(im1, im2), state, gumbel)
 
     return step
 

@@ -24,6 +24,7 @@ from libviso_torch.geometry.se3 import matrix_to_pose_vector
 from libviso_torch.geometry.triangulate import triangulate_rectified
 from libviso_torch.ops.topk import first_argmax, topk_iterative
 from libviso_torch.solvers.gauss_newton import (
+    _tree_sum,
     gauss_newton,
     reprojection_errors_sq,
 )
@@ -145,7 +146,9 @@ def ransac_pose(X, observe, valid, calib: Calib,
     final_mask = (err2_f < thr2) & valid
     n_final = final_mask.sum(-1)
     ok = (best_mask.sum(-1) >= cfg.min_inliers) & refit.converged
-    rms = torch.sqrt(torch.where(final_mask, err2_f, 0.0).sum(-1)
+    # a fixed tree of additions, so that a row's rms is the same in any
+    # batch (a library sum rounds a row differently with the batch)
+    rms = torch.sqrt(_tree_sum(torch.where(final_mask, err2_f, 0.0), -1)
                      / torch.clamp(n_final, min=1))
     return RansacPoseResult(tr=refit.tr, inliers=final_mask,
                             num_inliers=n_final, ok=ok,

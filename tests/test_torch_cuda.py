@@ -7,7 +7,13 @@ draws; loop closure on the card: the three routes give one
 ``LoopEngine.offer`` result, and a loop-mode resume is bit-exact;
 windowed bundle adjustment on the card: the BA equals its CPU run and makes
 no host sync, the inverted match map keeps the last writer, the three
-routes give one windowed run, and a windowed resume is bit-exact.
+routes give one windowed run, and a windowed resume is bit-exact; the
+parallel layer and the matcher variants on the card: the tensor-parallel
+matcher equals the local one at (1280, 1280, 128) with k launches a
+problem, the 'l2q8' cross term equals the CPU's and the int64 product,
+the banded matcher equals the dense one on a KITTI-size frame up to
+distance ties, the landmark-sharded BA makes no host sync, and
+StreamPipeline on two CUDA streams equals the serial run.
 
 Every test is marked ``cuda`` and skips without a card.  The file imports
 no JAX, so it runs on a machine that has none; the suite's conftest.py
@@ -24,6 +30,8 @@ output and within atol 1e-4 on the motions.  The problem count 46 is a
 16-frame window's (16 stereo and 30 temporal problems,
 ``pipeline/batched.py``), the largest the port's paths stack.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -806,3 +814,191 @@ def test_windowed_resume_on_the_card_equals_the_uninterrupted_run(tmp_path):
     np.testing.assert_array_equal(got.poses, want.poses)
     np.testing.assert_array_equal(got.frame_ok, want.frame_ok)
     assert got.window_costs == want.window_costs
+
+
+def _kitti_frame_problem(seed=0):
+    """Detector output of one KITTI-size stereo pair on the card."""
+    from libviso_torch.ops.features import detect_and_describe
+
+    seq = generate_sequence(num_frames=2, num_points=900, seed=seed,
+                            width=1241, height=376)
+    cfg = PipelineConfig()
+    ims = torch.tensor(np.stack([seq.frames[1][0], seq.frames[1][1],
+                                 seq.frames[0][0], seq.frames[0][1]]),
+                       device="cuda")
+    kps, ds = detect_and_describe(ims, cfg.detector)
+    F = torch.tensor(F_from_P_host(seq.P1, seq.P2), dtype=torch.float32,
+                     device="cuda")
+    return kps, ds, F, cfg
+
+
+def test_tp_matcher_equals_local_at_kitti_size():
+    """model = 1, 2, 4 entries all on cuda:0 at (1280, 1280, 128), stereo
+    with F and temporal: equal to match_descriptors bit for bit, with k
+    launches of the L1 kernel a problem."""
+    require_cuda()
+    from libviso_torch.config import MatchConfig
+    from libviso_torch.ops.features import Keypoints
+    from libviso_torch.ops.matching import match_descriptors
+    from libviso_torch.parallel import make_mesh, tp_match_descriptors
+
+    kps, ds, F, _ = _kitti_frame_problem()
+    kp = [Keypoints(*(x[i] for x in kps)) for i in range(4)]
+    problems = [(kp[0], ds[0], kp[1], ds[1], MatchConfig.stereo(), F),
+                (kp[0], ds[0], kp[2], ds[2], MatchConfig.temporal(), None)]
+    for k in (1, 2, 4):
+        mesh = make_mesh(n_data=1, n_model=k, devices=["cuda:0"] * k)
+        for kp1, d1, kp2, d2, mc, Fm in problems:
+            cfg = dataclasses.replace(mc, metric="l1")
+            local = match_descriptors(kp1, d1, kp2, d2, cfg, F=Fm)
+            before = cm.launches
+            got = tp_match_descriptors(mesh, kp1, d1, kp2, d2, cfg, F=Fm)
+            assert cm.launches - before == k
+            for a, b in zip(got, local):
+                assert torch.equal(a, b)
+            assert int(got.valid.sum()) > 100
+
+
+def test_l2q8_cross_on_the_card_equals_cpu():
+    """The quantized cross term is exact on either device (integer
+    partial sums below 2^24), so the card's equals the CPU's and the
+    int64 product; the l2q8 distances follow bit for bit."""
+    require_cuda()
+    from libviso_torch.ops.matching import (
+        descriptor_distances,
+        q8_cross,
+        quantize_q8,
+    )
+
+    a, b = _pair((3, 1280, 128), (3, 1280, 128), integer=False)
+    qa, qb = quantize_q8(a), quantize_q8(b)
+    card = q8_cross(qa, qb)
+    cpu = q8_cross(qa.cpu(), qb.cpu())
+    exact = torch.matmul(qa.cpu().long(), qb.cpu().long().transpose(-1, -2))
+    assert torch.equal(card.cpu(), cpu)
+    assert torch.equal(card.cpu().long(), exact)
+    assert torch.equal(descriptor_distances(a, b, "l2q8").cpu(),
+                       descriptor_distances(a.cpu(), b.cpu(), "l2q8"))
+
+
+@pytest.mark.parametrize("metric", ["l2", "l2q8"])
+def test_banded_equals_dense_on_a_card_frame(metric):
+    """A KITTI-size frame's three problems on the card: the banded
+    matcher's indices equal the dense path's except on rows whose two
+    candidates are at an exactly equal distance ('l2q8'), or within
+    float32 rounding of one ('l2', cross products blocked differently)."""
+    require_cuda()
+    from libviso_torch.ops.features import Keypoints
+    from libviso_torch.ops.matching import (
+        descriptor_distances,
+        match_frame_triple,
+    )
+    from libviso_torch.pipeline.stereo import match_layout
+
+    kps, ds, F, cfg = _kitti_frame_problem()
+    cfg = cfg.with_metric(metric)
+    cfg = dataclasses.replace(cfg, stereo_match=dataclasses.replace(
+        cfg.stereo_match, banded=True))
+    kp = [Keypoints(*(x[i] for x in kps)) for i in range(4)]
+    args = (kp[0], ds[0], kp[1], ds[1], kp[2], ds[2], kp[3], ds[3],
+            cfg.stereo_match, cfg.temporal_match, F)
+    layout = match_layout(cfg, 1241)
+    assert layout is not None
+    banded = match_frame_triple(*args, layout=layout, image_width=1241)
+    dense = match_frame_triple(*args)
+    targets = (ds[1], ds[2], ds[3])
+    queries = (ds[0], ds[0], ds[1])
+    for b, d, q, t in zip(banded, dense, queries, targets):
+        assert torch.equal(b.valid, d.valid)
+        rows = torch.nonzero(b.idx != d.idx)[:, 0]
+        if len(rows):
+            dd = descriptor_distances(q[rows], t, metric)
+            pick_b = dd.gather(1, b.idx[rows, None])[:, 0]
+            pick_d = dd.gather(1, d.idx[rows, None])[:, 0]
+            if metric == "l2q8":
+                assert torch.equal(pick_b, pick_d)
+            else:
+                torch.testing.assert_close(pick_b, pick_d, rtol=1e-6,
+                                           atol=0)
+        assert int(b.valid.sum()) > 300
+
+
+def test_sharded_bundle_adjust_makes_no_host_sync():
+    """The landmark axis of the (8, 1280) window over 4 entries of
+    cuda:0: within 1e-4 (poses) and 1e-3 (landmarks) of bundle_adjust,
+    and no host synchronisation after a first call."""
+    require_cuda()
+    from libviso_torch.parallel import make_mesh, sharded_bundle_adjust
+    from libviso_torch.solvers.bundle_adjust import bundle_adjust
+
+    args, calib = _ba_window()
+    args = [a.cuda() for a in args]
+    mesh = make_mesh(n_data=1, n_model=4, devices=["cuda:0"] * 4)
+    ref = bundle_adjust(*args, calib, iters=10)
+    sharded_bundle_adjust(mesh, *args, calib, iters=10)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        res = sharded_bundle_adjust(mesh, *args, calib, iters=10)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    np.testing.assert_allclose(res.poses.cpu(), ref.poses.cpu(), atol=1e-4)
+    np.testing.assert_allclose(res.landmarks.cpu(), ref.landmarks.cpu(),
+                               atol=1e-3)
+
+
+def test_stream_pipeline_on_two_streams_equals_serial():
+    """StreamPipeline with both stages on cuda:0, each on its own CUDA
+    stream: the serial run's motions and ok flags bit for bit."""
+    require_cuda()
+    from libviso_torch.parallel.pp_odometry import StreamPipeline
+
+    seq = generate_sequence(num_frames=6, num_points=500, seed=3,
+                            width=416, height=160)
+    cfg = PipelineConfig().with_metric("l1")
+    serial = run_stereo_sequence(seq.frames, seq.P1, seq.P2, cfg,
+                                 device="cuda")
+    sp = StreamPipeline(seq.P1, seq.P2, cfg, devices=["cuda:0", "cuda:0"])
+    assert sp._stages.streams is not None
+    outs = [sp.push(im1, im2) for im1, im2 in seq.frames][1:] + [sp.flush()]
+    motions = np.stack([o.tr.cpu().numpy() for o in outs])
+    ok = np.array([bool(o.ok) for o in outs])
+    ok[0] = False
+    np.testing.assert_array_equal(ok, serial.frame_ok)
+    np.testing.assert_array_equal(motions, serial.motions)
+
+
+def test_staged_drivers_take_card_tensors():
+    """Frames and draws already on the card: StreamPipeline.push and
+    run_pipelined_odometry take them in the order of the stream that made
+    them, and equal the serial run bit for bit."""
+    require_cuda()
+    from libviso_torch.parallel import make_pipe_mesh, run_pipelined_odometry
+    from libviso_torch.parallel.pp_odometry import StreamPipeline
+
+    seq = generate_sequence(num_frames=6, num_points=500, seed=3,
+                            width=416, height=160)
+    cfg = PipelineConfig().with_metric("l1")
+    shape = (cfg.ransac.num_hypotheses, cfg.detector.num_slots)
+
+    def draws(t):
+        return sample_gumbel(shape, frame_generator(0, t)).cuda()
+
+    serial = run_stereo_sequence(seq.frames, seq.P1, seq.P2, cfg,
+                                 device="cuda")
+    card = [[torch.as_tensor(f[v], device="cuda") for f in seq.frames]
+            for v in (0, 1)]
+    sp = StreamPipeline(seq.P1, seq.P2, cfg, devices=["cuda:0", "cuda:0"],
+                        draws=draws)
+    outs = [sp.push(a, b) for a, b in zip(*card)][1:] + [sp.flush()]
+    ok = np.array([bool(o.ok) for o in outs])
+    ok[0] = False
+    np.testing.assert_array_equal(ok, serial.frame_ok)
+    np.testing.assert_array_equal(
+        np.stack([o.tr.cpu().numpy() for o in outs]), serial.motions)
+    poses, motions, ok = run_pipelined_odometry(
+        make_pipe_mesh(["cuda:0", "cuda:0"]), seq.P1, seq.P2,
+        torch.stack(card[0]), torch.stack(card[1]), cfg, draws=draws)
+    np.testing.assert_array_equal(motions, serial.motions)
+    np.testing.assert_array_equal(ok, serial.frame_ok)
+    np.testing.assert_array_equal(poses, serial.poses)

@@ -198,9 +198,10 @@ def test_summarize_keyframe_matches_jax(jax_run):
 
 
 # (metric, backend of the port): each backend's plain version under l1,
-# dense under l2; the JAX package's dense ("xla") matcher is the reference
+# dense under l2 and l2q8; the JAX package's dense ("xla") matcher is the
+# reference
 MATCHERS = [("l1", "dense"), ("l1", "fused"), ("l1", "sweep"),
-            ("l2", "dense")]
+            ("l2", "dense"), ("l2q8", "dense")]
 STORE = 16   # the first 16 store slots (11 hold keyframes at frame 44)
 
 

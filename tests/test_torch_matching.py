@@ -116,10 +116,14 @@ def test_sampson_nan_pairs_are_rejected():
 @pytest.mark.parametrize("cfg", [MatchConfig(metric="l2q8"),
                                  MatchConfig(banded=True)])
 def test_unported_matcher_options_raise(cfg):
-    kp = Keypoints(xy=torch.zeros(2, 2), response=torch.ones(2),
-                   valid=torch.ones(2, dtype=bool))
-    d = torch.ones(2, 128)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmatch.match_descriptors(kp, d, kp, d, cfg)
+    """No matcher option is left unported: 'l2q8' and the banded flag,
+    which used to raise NotImplementedError, now match (the banded path
+    needs a layout, so match_descriptors stays dense); their parity with
+    JAX is tests/test_torch_matcher_variants.py's."""
+    kp = Keypoints(xy=torch.tensor([[10.0, 10.0], [40.0, 12.0]]),
+                   response=torch.ones(2), valid=torch.ones(2, dtype=bool))
+    d = torch.tensor([[8.0] * 128, [-24.0] * 128])
+    res = tmatch.match_descriptors(kp, d, kp, d, cfg)
+    assert res.idx.tolist() == [0, 1] and res.dist.tolist() == [0.0, 0.0]
     with pytest.raises(ValueError, match="unknown metric"):
         tmatch.descriptor_distances(d, d, metric="cosine")

@@ -7,19 +7,25 @@ motions within atol 5e-6 and poses within 5e-5.  With the JAX package's
 RANSAC draws injected, the port's run_multistream equals JAX's on the
 discrete stats and within atol 5e-6 on the motions.  ``cli serve`` is
 tests/test_torch_serve_cli.py's; the card's run is
-tests/test_torch_cuda.py's and chip_smoke.py's.
+tests/test_torch_cuda.py's and chip_smoke.py's.  The stream axis split
+over a mesh (``jit_multistream_sharded``) equals the unsharded step bit
+for bit.
 """
 
 import numpy as np
 import pytest
+import torch
 
 from libviso_tpu.config import DetectorConfig as JDetectorConfig
 from libviso_tpu.config import PipelineConfig as JPipelineConfig
 from libviso_tpu.config import RansacConfig as JRansacConfig
 from libviso_tpu.pipeline.multistream import run_multistream as jax_multi
-from libviso_torch.config import from_jax_config
+from libviso_torch.config import Calib, from_jax_config
+from libviso_torch.geometry.mvg import F_from_P_host
+from libviso_torch.parallel import make_mesh
 from libviso_torch.pipeline import multistream as tms
 from libviso_torch.pipeline.stereo import run_stereo_sequence
+from libviso_torch.solvers.ransac import frame_generator, sample_gumbel
 from libviso_torch.synthetic import generate_sequence
 from tests.torch_parity import jax_frame_gumbel
 
@@ -132,13 +138,61 @@ def test_stack_states_round_trip():
 
 
 def test_options_not_ported_raise(seqs):
-    """What serving still refuses: the sharded step (item 15) and the
-    matcher variants (item 14)."""
-    a = seqs[0]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-        tms.jit_multistream_sharded(None, CFG)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        tms.run_multistream([a.frames], [a.P1], [a.P2],
-                            CFG.with_metric("l2q8"), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        tms.build_multistream_chunk(CFG.with_metric("l2q8"), 2)
+    """Nothing of serving is left unported: the sharded step and metric
+    'l2q8', which used to raise NotImplementedError, now run; each 'l2q8'
+    stream equals its solo 'l2q8' run."""
+    a, b, _ = seqs
+    cfg = CFG.with_metric("l2q8")
+    mesh = make_mesh(n_data=2, devices=["cpu"] * 2)
+    assert callable(tms.jit_multistream_sharded(mesh, CFG))
+    multi = tms.run_multistream([a.frames, b.frames], [a.P1, b.P1],
+                                [a.P2, b.P2], cfg, seeds=[0, 1],
+                                device="cpu")
+    for res, seq, seed in zip(multi, (a, b), (0, 1)):
+        _assert_contract(res, run_stereo_sequence(
+            seq.frames, seq.P1, seq.P2, cfg, seed=seed, device="cpu"))
+        assert res.frame_ok[1:].all()
+    assert callable(tms.build_multistream_chunk(cfg, 2))
+
+
+def _leaves_equal(x, y):
+    return all(torch.equal(u, v) for u, v in zip(
+        tms.state_leaves(x), tms.state_leaves(y)))
+
+
+@pytest.mark.parametrize("chunk", [1, 2])
+def test_sharded_step_equals_unsharded_bitwise(seqs, chunk):
+    """4 streams over 2 entries of a CPU mesh: every stream's new state
+    and output equal the unsharded step's bit for bit, at each step."""
+    a, b, c = seqs
+    streams = [a, b, c, a]
+    S, K = len(streams), chunk
+    calibs = [Calib.from_projections(s.P1, s.P2) for s in streams]
+    F = torch.as_tensor(np.stack([F_from_P_host(s.P1, s.P2)
+                                  for s in streams]), dtype=torch.float32)
+    shape = (CFG.ransac.num_hypotheses, CFG.detector.num_slots)
+    mesh = make_mesh(n_data=2, devices=["cpu"] * 2)
+    sharded = tms.jit_multistream_sharded(mesh, CFG, chunk=chunk)
+    plain = (tms.build_multistream_chunk(CFG, chunk) if chunk > 1
+             else tms.build_multistream_step(CFG))
+    st_p = st_s = tms.stack_states([tms.empty_state(CFG)] * S)
+    for t0 in range(0, 4, K):
+        ims = [torch.as_tensor(np.stack([np.stack(
+            [s.frames[t][v] for t in range(t0, t0 + K)]) for s in streams]))
+            for v in (0, 1)]
+        if chunk == 1:
+            ims = [x[:, 0] for x in ims]
+        g = [[sample_gumbel(shape, frame_generator(i, t))
+              for t in range(t0, t0 + K)] for i in range(S)]
+        if chunk == 1:
+            g = [x[0] for x in g]
+        st_p, out_p = plain(calibs, F, st_p, *ims, g)
+        st_s, out_s = sharded(calibs, F, st_s, *ims, g)
+        assert _leaves_equal(st_p, st_s)
+        flat = (lambda o: [x for xs in o for x in xs]) if chunk > 1 else list
+        for op, os_ in zip(flat(out_p), flat(out_s)):
+            assert all(torch.equal(u, v) for u, v in zip(op, os_))
+    with pytest.raises(ValueError, match="split"):
+        tms.jit_multistream_sharded(make_mesh(n_data=3,
+                                              devices=["cpu"] * 3), CFG)(
+            calibs, F, st_p, *ims, g)

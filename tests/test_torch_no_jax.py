@@ -39,7 +39,10 @@ def test_package_has_sources():
             "ops/structural.py", "pipeline/loop.py",
             "pipeline/mono_loop.py", "solvers/bundle_adjust.py",
             "pipeline/refine.py", "pipeline/windowed.py",
-            "pipeline/ba_loop.py"} <= names
+            "pipeline/ba_loop.py", "parallel/__init__.py",
+            "parallel/mesh.py", "parallel/distributed.py",
+            "parallel/odometry.py", "parallel/tp_matching.py",
+            "parallel/pp_odometry.py", "parallel/ba_sharding.py"} <= names
 
 
 @pytest.mark.parametrize("path", SOURCES,

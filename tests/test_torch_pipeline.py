@@ -120,15 +120,19 @@ def test_cuda_device_without_a_card_raises(seq, monkeypatch):
          chunk=2),
 ])
 def test_options_not_ported_raise(seq, kwargs):
-    """What run_stereo_sequence still refuses: the matcher variants."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tstereo.run_stereo_sequence(seq.frames[:2], seq.P1, seq.P2,
-                                    device="cpu", **kwargs)
+    """No matcher variant is left unported: 'l2q8', the banded matcher
+    and 'l2q8' in chunks, which used to raise NotImplementedError, now
+    run and solve every frame after the first (their parity with JAX is
+    tests/test_torch_matcher_variants.py's)."""
+    res = tstereo.run_stereo_sequence(seq.frames[:3], seq.P1, seq.P2,
+                                      device="cpu", **kwargs)
+    assert len(res.stats) == 3 and res.frame_ok[1:].all()
 
 
 @pytest.mark.parametrize("argv", [["--metric", "l2q8"]])
-def test_cli_flags_not_ported_raise(argv, tmp_path):
-    """The matcher variant l2q8 (ROADMAP item 14)."""
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md Queue 1 item 14"):
-        cli.main(["synth", "--frames", "2", "--device", "cpu", *argv])
+def test_cli_flags_not_ported_raise(argv, capsys):
+    """No CLI flag is left unported: --metric l2q8, which used to raise
+    NotImplementedError, now runs."""
+    cli.main(["synth", "--frames", "2", "--device", "cpu", *argv])
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["solved"] == 1

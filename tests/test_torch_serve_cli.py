@@ -41,12 +41,21 @@ def test_cli_serve_on_cpu(kitti_home, capsys, pool):
 @pytest.mark.parametrize("argv,error", [
     (["--metric", "l2", "--backend", "fused"], ValueError),
     (["--backend", "sweep"], ValueError),        # the default metric is l2
-    (["--metric", "l2q8"], NotImplementedError),  # ROADMAP item 14
 ])
 def test_cli_serve_rejects(kitti_home, argv, error):
     with pytest.raises(error):
         cli.main(["serve", "sha", "77,78", "--kitti-home", str(kitti_home),
                   "--device", "cpu", *argv])
+
+
+def test_cli_serve_l2q8(kitti_home, capsys):
+    """Serving under metric 'l2q8' (which used to be refused)."""
+    cli.main(["serve", "sha", "77,78", "--kitti-home", str(kitti_home),
+              "--device", "cpu", "--metric", "l2q8", "--end", "1"])
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["streams"] == 2
+    for seq in out["sequences"]:
+        assert seq["frames"] == 2 and seq["solved"] == 1
 
 
 @pytest.mark.parametrize("argv", [

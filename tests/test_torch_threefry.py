@@ -14,6 +14,7 @@ import pytest
 
 from tools import threefry as tf
 from tests.torch_parity import (
+    jax_chunk_gumbel,
     jax_frame_gumbel,
     jax_loop_verify_gumbel,
     jax_mono_gumbel,
@@ -79,3 +80,13 @@ def test_window_draws_equal_the_jax_package_draws(seed, w, T_w):
     got = tf.window_gumbel(seed, w, T_w, (32, 512))
     assert got.shape == (T_w - 1, 32, 512)
     _same_draws(got, jax_window_gumbel(seed, w, T_w - 1, 32, 512))
+
+
+@pytest.mark.parametrize("seed,B,c,n", [(0, 4, 0, 5), (0, 4, 3, 5),
+                                        (2, 2, 1, 2)])
+def test_chunk_draws_equal_the_jax_package_draws(seed, B, c, n):
+    """A sharded odometry chunk's draws: split(PRNGKey(seed), B)[c],
+    split(n), gumbel each."""
+    got = tf.chunk_gumbel(seed, B, c, n, (32, 256))
+    assert got.shape == (n, 32, 256)
+    _same_draws(got, jax_chunk_gumbel(seed, B, c, n, 32, 256))

@@ -96,3 +96,15 @@ def jax_window_gumbel(seed: int, w: int, n: int, num_hypotheses: int,
         to_torch(jax.random.gumbel(k, (num_hypotheses, num_slots),
                                    jnp.float32))
         for k in jax.random.split(key, n)])
+
+
+def jax_chunk_gumbel(seed: int, n_chunks: int, c: int, n: int,
+                     num_hypotheses: int, num_slots: int):
+    """The draws of chunk c of the JAX sharded odometry, for its n
+    transitions: split(PRNGKey(seed), n_chunks)[c] -> split(n) -> gumbel
+    each, as an (n, H, N) torch tensor (the port's ``draws(c, n)`` seam)."""
+    key = jax.random.split(jax.random.PRNGKey(seed), n_chunks)[c]
+    return torch.stack([
+        to_torch(jax.random.gumbel(k, (num_hypotheses, num_slots),
+                                   jnp.float32))
+        for k in jax.random.split(key, n)])

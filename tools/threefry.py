@@ -114,3 +114,11 @@ def window_gumbel(seed: int, w: int, T_w: int, shape):
     (T_w - 1, *shape)."""
     keys = split(fold_in(prng_key(seed), w), T_w - 1)
     return np.stack([gumbel(k, shape) for k in keys])
+
+
+def chunk_gumbel(seed: int, n_chunks: int, c: int, n: int, shape):
+    """The draws of chunk c of the JAX package's sharded odometry (chunks
+    of n + 1 frames): split(PRNGKey(seed), n_chunks)[c] -> split(n) ->
+    gumbel each, stacked as (n, *shape)."""
+    keys = split(split(prng_key(seed), n_chunks)[c], n)
+    return np.stack([gumbel(k, shape) for k in keys])
