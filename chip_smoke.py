@@ -153,13 +153,33 @@ Phases, each of which exits non-zero on failure:
      l2q8` with the VISO_* variables unset (where PIL imports); and two
      processes on cuda:0 joined by VISO_* over localhost (gloo), each with
      a timeout, running run_sharded_odometry_multihost on 9 KITTI-size
-     frames, both equal to the one-process run bit for bit.
+     frames, both equal to the one-process run bit for bit;
+ 25. profiling (libviso_torch.utils.profiling): device_peaks() has the
+     card's row; profile_matcher at (1280, 1280, 128) under l1 through the
+     kernel (kernel #1 launched (warmup + reps) x chain times) and its plain
+     version (no launch), l2 and l2q8; profile_solver at its defaults,
+     profile_frame_step and profile_mono_step, each KernelStats printed and
+     every flop_util and bw_util at most 1.05; kernel #1 alone at the
+     profile's shape (1, 1280, 128) equals its plain version bitwise on
+     integer descriptors and is timed beside its bound, its plain version
+     and torch.cdist(p=1), by device_ms and by time_call; trace() around
+     one l1 match in a fresh process writes a trace that names kernel
+     #1's __global__ function, and in this process it does so too or
+     raises because the profiler lost the kernel's record;
+ 26. the native image runtime (libviso_torch.native): available() and its
+     reason; where it builds, the PNGs of a mini KITTI tree (as phase 14
+     writes them) and the phase-4 sequence's 20 KITTI-size pairs decode
+     byte-equal to PIL, StereoImageStream yields them in order, and the
+     host ms a frame of the native stream and the PIL read-ahead are
+     printed in turns with the host's CPU model; where it cannot build
+     (no png.h), one line says so.
 
 The line before the last is the kernel table as JSON: per kernel its
 launches on the main path, its time beside its bound (the larger of the
 bytes it must move over 3.35 TB/s and its FP32 instructions over the
 card's issue rate, 132 SMs x 128 lanes x 1.98 GHz; 67 TFLOP/s counts an
-FMA as two) and the share of the bound it reaches, the plain version's
+FMA as two: libviso_torch.utils.profiling's bound_ms on the card's row of
+its peak table) and the share of the bound it reaches, the plain version's
 time and the library call's, at the main shape (3, 1280, 128) and the
 serving shape (12, 1280, 128), and at the mono shape (1, 1536, 384) with
 its launches in the 20-frame mono run (`mono_launches`), and at the loop
@@ -173,9 +193,12 @@ under the kernel's backend (`ba_launches`, two a window; each shape's
 parallel paths: `tp_launches` (phase 20, kernel #1; null for the
 kernels phase 20 does not run), `chunk_launches` (phase 21 under the
 kernel's backend), `pp_launches` (phase 22's staged run) and
-`sharded_serve_launches` (phase 24 under the kernel's backend), with
+`sharded_serve_launches` (phase 24 under the kernel's backend) and
+`profile_launches` (phase 25's l1 profile, kernel #1; null for the
+others), with
 rows (`path` names them) at kernel #1's shard shape (1, 1280, 320, 128)
-with phase 20's launches at model = 4, at the chunk's shapes (6, 1280,
+with phase 20's launches at model = 4, at the profile's (1, 1280, 128)
+with phase 25's, at the chunk's shapes (6, 1280,
 128) and (10, 1280, 128) with phase 21's launches of each shape, and at
 a serving entry's (6, 1280, 128) with phase 24's.  The sweep's
 entry is its whole route
@@ -200,6 +223,10 @@ import time
 
 import numpy as np
 
+# tools/kernel_variants.py reads the timer as chip_smoke._time_ms
+from libviso_torch.utils.profiling import bound_ms, two_min_bound
+from libviso_torch.utils.profiling import device_ms as _time_ms
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # The JAX package's ATE [m] on the phase-4 sequence and configuration
@@ -220,8 +247,6 @@ KITTI_SEQUENCE = dict(num_frames=20, num_points=900, seed=0, width=1241,
                       height=376, f=718.856, base=0.5371657, speed=0.8)
 MAIN_SHAPE = (3, 1280, 128)   # a frame's three match problems
 SERVE_SHAPE = (12, 1280, 128)  # a 4-stream serving step's twelve
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
-FP32_INSTR_PER_S = 132 * 128 * 1.98e9   # FP32 lanes x boost clock
 # The JAX package's Sim(3)-aligned ATE [m] of the mono path on the left
 # frames of the phase-4 sequence (PipelineConfig.mono() under each metric,
 # seed 0, K = P1[:, :3]; 19 of 19 frames solved under both), computed on
@@ -403,6 +428,7 @@ SHARD_SHAPE = (1, 1280, 320, 128)  # kernel #1 on a model=4 shard: P, N1, N2, D
 CHUNK_SEQUENCE = {**KITTI_SEQUENCE, "num_frames": 21}   # phase 21
 CHUNK_SHAPES = ((6, 1280, 128), (10, 1280, 128))   # a chunk's two calls
 ENTRY_SHAPE = (6, 1280, 128)   # a sharded serving entry: 2 streams x 3
+PROFILE_SHAPE = (1, 1280, 128)   # profile_matcher's default problem
 KEYS = ("ok", "num_lr", "num_circle", "num_inliers")
 STATS = ("frame", "ok", "num_kp1", "num_lr", "num_circle", "num_inliers")
 SERVE_LENGTHS = (20, 20, 16, 12)   # streams of seeds 0..3
@@ -453,12 +479,15 @@ def build_phase():
     print(f"[build] {os.path.relpath(so, ROOT)} in "
           f"{time.perf_counter() - t0:.2f} s")
     kernel = None
+    names = []
     for line in so.with_suffix(".log").read_text().splitlines():
         mangled = re.search(r"Compiling entry function '(\w+)'", line)
         if mangled:
             kernel = _kernel_name(mangled.group(1))
+            names.append(kernel)
         elif "Used" in line or "spill" in line:
             print(f"[build] ptxas {kernel}: {line.split(':', 1)[-1].strip()}")
+    return names
 
 
 def _kernel_name(mangled):
@@ -490,22 +519,6 @@ def read_launches():
     from libviso_torch.ops import fused_matching as fm
 
     return {"l1_distance_matrix": cm.launches, **fm.launches}
-
-
-def _time_ms(fn, reps=20):
-    """Device ms per call: a sleep kernel holds the card while the host
-    queues the timed calls, so host time between calls is not counted."""
-    import torch
-
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int(0.05 * 1.98e9))   # about 50 ms
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def kernel_phase():
@@ -566,24 +579,6 @@ def kernel_phase():
               f"{ms['plain']}; torch.cdist(p=1) {t['library']:.4f} ms "
               f"{ms['library']} per call")
     return max_err, times
-
-
-def bound_ms(ops, nbytes):
-    """The least time for the work: (ms, "operations" or "bytes"), the
-    larger of FP32 instructions over the issue rate and bytes over the
-    memory rate."""
-    t_ops, t_bytes = ops / FP32_INSTR_PER_S, nbytes / HBM_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                       else "bytes")
-
-
-def two_min_bound(B, N1, N2, D, pairs):
-    """Bound of a gated two-min over `pairs` (query, target) pairs: two
-    FP32 instructions per L1 accumulation and one per pair to fold it into
-    its row; each input read once (xy, validity, descriptors, F, use_epi)
-    and (best, second, idx) written once."""
-    nbytes = B * (N1 + N2) * (4 * D + 9) + 37 * B + 12 * B * N1
-    return bound_ms(pairs * (2 * D + 1), nbytes)
 
 
 def main_path_phase(seq):
@@ -2973,6 +2968,217 @@ def sharded_serve_phase(seqs):
     return launches, problems
 
 
+def profiling_phase(kernel_names):
+    """Phase 25: libviso_torch.utils.profiling on the card.  Returns
+    kernel #1's launches in the l1 profile through the kernel, and the
+    kernel's row at the profile's shape, timed alone."""
+    import re
+
+    import torch
+
+    from libviso_torch.ops import cuda_matching as cm
+    from libviso_torch.utils import profiling as prof
+
+    peak_f, peak_b = prof.device_peaks()
+    check(peak_f is not None and peak_b is not None,
+          f"device_peaks() has no row for {torch.cuda.get_device_name(0)}")
+    print(f"[profile] device_peaks(): {peak_f:.6g} FLOP/s (FP32), "
+          f"{peak_b:.6g} B/s")
+    reps, warmup = 20, 3   # profile_matcher's reps, time_call's warm-up
+    stats, profile_launches = [], None
+    for metric, backend in (("l1", "kernel"), ("l1", "plain"),
+                            ("l2", "kernel"), ("l2q8", "kernel")):
+        before = cm.launches
+        stats.append(prof.profile_matcher(1280, 1280, 128, metric=metric,
+                                          backend=backend, reps=reps))
+        n = cm.launches - before
+        want = (warmup + reps) if (metric, backend) == ("l1", "kernel") \
+            else 0
+        check(n == want, f"profile_matcher({metric}, {backend}) launched "
+              f"kernel #1 {n} times, not {want}")
+        if want:
+            profile_launches = n
+    t0 = time.perf_counter()
+    stats.append(prof.profile_solver())
+    stats.append(prof.profile_frame_step(chain=16, reps=3))
+    stats.append(prof.profile_mono_step(chain=4, reps=2))
+    print(f"[profile] solver, frame step and mono step profiled in "
+          f"{time.perf_counter() - t0:.1f} s")
+    for st in stats:
+        print(f"[profile] {st.pretty()}  ({st.seconds!r} s)")
+        check(st.flop_util <= 1.05 and st.bw_util <= 1.05,
+              f"{st.name}: flop_util {st.flop_util}, bw_util "
+              f"{st.bw_util} above 1.05: the cost model or the timer is "
+              f"wrong")
+
+    # kernel #1 alone at the profile's shape, on integer descriptors
+    _, N, D = PROFILE_SHAPE
+    rng = np.random.default_rng(25)
+    a, b = (torch.tensor(rng.integers(0, 256, (N, D)), dtype=torch.float32,
+                         device="cuda") for _ in range(2))
+    check(torch.equal(cm.l1_distance_matrix(a, b),
+                      cm.l1_distance_matrix_plain(a, b)),
+          f"kernel #1 != plain at the profile's shape {PROFILE_SHAPE}")
+    fns = {"plain": lambda: cm.l1_distance_matrix_plain(a, b),
+           "kernel": lambda: cm.l1_distance_matrix(a, b),
+           "library": lambda: torch.cdist(a, b, p=1)}
+    ms = {k: [] for k in fns}
+    for k in list(fns) + list(fns)[::-1]:
+        ms[k].append(_time_ms(fns[k]))
+    t = {k: sum(v) / 2 for k, v in ms.items()}
+    per_call = 1e3 * prof.time_call(fns["kernel"], reps=20,
+                                      clock="device")
+    bound, by = bound_ms(2 * N * N * D, 4 * (2 * N * D + N * N))
+    print(f"[profile] kernel #1 alone at {PROFILE_SHAPE}: {t['kernel']:.4f} "
+          f"ms {ms['kernel']} (device_ms, a mean of 20 calls; time_call's "
+          f"median of single calls {per_call:.4f} ms), bound {bound:.4f} ms "
+          f"({by}, share {bound / t['kernel']:.3f}); plain {t['plain']:.4f} "
+          f"ms; torch.cdist(p=1) {t['library']:.4f} ms")
+    row = {"ms": t["kernel"], "plain_ms": t["plain"],
+           "library_ms": t["library"], "bound_ms": bound, "bound_by": by,
+           "share_of_bound": bound / t["kernel"], "path": "profile_matcher",
+           "launches": profile_launches}
+
+    source = open(os.path.join(ROOT, "libviso_torch", "csrc",
+                               "l1_distance.cu")).read()
+    name = next((k for k in kernel_names if re.search(
+        rf"\b{k}\s*\(", source)), None)
+    check(name is not None, f"no kernel of the build {kernel_names} is "
+          f"defined in csrc/l1_distance.cu")
+    # trace() around one l1 match in a fresh process, where it must name
+    # the kernel, and here, after phases 4-24 and the processes they
+    # started: here the profiler may lose the kernel's record (PERF.md
+    # §7), and then trace() must raise rather than return the trace
+    base = os.path.join(ROOT, "build", "chip_smoke_trace")
+    here, fresh = os.path.join(base, "here"), os.path.join(base, "fresh")
+    cmd = [sys.executable, "-c",
+           f"import chip_smoke; chip_smoke._trace_l1({fresh!r})"]
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=300)
+    check(proc.returncode == 0, f"the trace process exited "
+          f"{proc.returncode}:\n{proc.stderr[-2000:]}")
+    try:
+        _trace_l1(here)
+        raised = None
+    except RuntimeError as e:
+        raised = str(e)
+    for label, logdir in (("in a fresh process", fresh),
+                          ("in this process", here)):
+        path = os.path.join(logdir, "trace.json")
+        with open(path) as fh:
+            events = json.load(fh)["traceEvents"]
+        kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+        launches = [e["name"] for e in events
+                    if e.get("cat") == "cuda_runtime"
+                    and "LaunchKernel" in e.get("name", "")]
+        named = any(name in k for k in kernels)
+        if logdir == here and raised is not None:
+            check(launches and not named, f"trace() raised but {path} "
+                  f"holds the kernel's record: {raised}")
+            print(f"[profile] trace() around one l1 match, {label}: the "
+                  f"profiler lost the kernel's record and trace() raised: "
+                  f"{raised}")
+            continue
+        cats = sorted({str(e.get("cat")) for e in events})
+        check(named, f"the trace {path} does not name {name}: its kernels "
+              f"{kernels}, its categories {cats}")
+        print(f"[profile] trace() around one l1 match, {label}: {path} "
+              f"({os.path.getsize(path)} bytes) names {name}: {kernels}")
+    return profile_launches, row
+
+
+def _trace_l1(logdir):
+    """One l1 match under profiling.trace(logdir), after a warm-up call
+    outside it."""
+    import torch
+
+    from libviso_torch.ops import cuda_matching as cm
+    from libviso_torch.utils import profiling as prof
+
+    g = torch.Generator(device="cuda").manual_seed(25)
+    a, b = (torch.randn((1280, 128), generator=g, device="cuda")
+            for _ in range(2))
+    cm.l1_distance_matrix(a, b)
+    torch.cuda.synchronize()
+    with prof.trace(logdir):
+        cm.l1_distance_matrix(a, b)
+        torch.cuda.synchronize()
+
+
+def _cpu_model():
+    with open("/proc/cpuinfo") as fh:
+        for line in fh:
+            if line.startswith("model name"):
+                return line.split(":", 1)[1].strip()
+    return "unknown"
+
+
+def native_phase(seq):
+    """Phase 26: the native image runtime against PIL on PNG frames."""
+    from libviso_torch import native
+
+    reason = native.unavailable_reason()
+    print(f"[native] available() {reason is None}"
+          + ("" if reason is None else f": {reason}"))
+    if reason is not None:
+        return
+    try:
+        from PIL import Image
+    except ImportError:
+        print("[native] PIL does not import here: no comparison made")
+        return
+    import shutil
+
+    from libviso_torch.io import kitti
+
+    home = os.path.join(ROOT, "build", "chip_smoke_native")
+    _write_mini_kitti(home)
+    base = os.path.join(home, "sequences", "00")
+    for cam in ("image_0", "image_1"):
+        os.makedirs(os.path.join(base, cam))
+    for i, pair in enumerate(seq.frames):
+        for cam, im in zip(("image_0", "image_1"), pair):
+            Image.fromarray(np.asarray(im).astype(np.uint8)).save(
+                os.path.join(base, cam, f"{i:06d}.png"))
+
+    def pil(path):
+        with Image.open(path) as im:
+            return np.asarray(im.convert("L"), dtype=np.uint8)
+
+    for name, count in (("77", 6), ("00", len(seq.frames))):
+        masks = [os.path.join(home, "sequences", name, cam, "%06d.png")
+                 for cam in ("image_0", "image_1")]
+        frames = list(kitti.StereoImageStream(*masks))
+        check(len(frames) == count, f"sequence {name}: {len(frames)} "
+              f"frames streamed, not {count}")
+        for i, pair in enumerate(frames):
+            for mask, got in zip(masks, pair):
+                want = pil(mask % i)
+                check(np.array_equal(native.decode_png_gray(mask % i),
+                                     want) and np.array_equal(got, want),
+                      f"{mask % i}: native decode != PIL")
+        print(f"[native] sequence {name}: {count} pairs of "
+              f"{frames[0][0].shape[1]}x{frames[0][0].shape[0]} byte-equal "
+              f"to PIL, in order through StereoImageStream")
+
+    masks = [os.path.join(base, cam, "%06d.png")
+             for cam in ("image_0", "image_1")]
+    routes = {"native": kitti._native, "PIL": lambda: None}
+    ms = {k: [] for k in routes}
+    try:
+        for route in ("native", "PIL", "PIL", "native"):
+            kitti._native = routes[route]
+            t0 = time.perf_counter()
+            n = sum(1 for _ in kitti.StereoImageStream(*masks))
+            ms[route].append(1e3 * (time.perf_counter() - t0) / n)
+    finally:
+        kitti._native = routes["native"]
+    shutil.rmtree(home)
+    print(f"[native] host ms a 1241x376 stereo pair over {n} pairs, in "
+          f"turns: native stream {ms['native']}, PIL read-ahead "
+          f"{ms['PIL']}; {os.cpu_count()} cores of {_cpu_model()}")
+
+
 def kernels_line(launches, l1_err, l1_times, serve_launches, fused_err,
                  fused_times, counts):
     """The kernel table: per kernel its main-path launches and, at the
@@ -3047,7 +3253,7 @@ def kernels_line(launches, l1_err, l1_times, serve_launches, fused_err,
 def main():
     t_start = time.perf_counter()
     device_name, count, smi = device_phase()
-    build_phase()
+    kernel_names = build_phase()
     l1_err, l1_times = kernel_phase()
 
     from libviso_torch.synthetic import generate_sequence
@@ -3096,6 +3302,8 @@ def main():
     sharded_serve_launches, entry_problems = sharded_serve_phase(seqs)
     entry_rows, entry_err = kernel_shapes_phase("entry-kernel",
                                                 entry_problems, 40)
+    profile_launches, profile_row = profiling_phase(kernel_names)
+    native_phase(seq)
 
     line = kernels_line(launches, l1_err, l1_times, serve_launches,
                         fused_err, fused_times, counts)
@@ -3126,8 +3334,11 @@ def main():
         k["chunk_launches"] = chunk_launches.get(kernel)
         k["pp_launches"] = pp_launches.get(kernel)
         k["sharded_serve_launches"] = sharded_serve_launches[kernel]
+        k["profile_launches"] = {
+            "l1_distance_matrix": profile_launches}.get(kernel)
         if kernel == "l1_distance_matrix":
             k["shapes"].append({"shape": list(SHARD_SHAPE), **shard_row})
+            k["shapes"].append({"shape": list(PROFILE_SHAPE), **profile_row})
         for shape in CHUNK_SHAPES:
             k["shapes"].append({"shape": list(shape),
                                 "path": "chunked odometry",

@@ -1,8 +1,11 @@
 """KITTI odometry dataset I/O (port of ``libviso_tpu/io/kitti.py``).
 
 Calibration parsing, devkit pose files and lazy stereo and mono image
-streams whose decode (PIL, imported on first use) runs on a read-ahead
-thread so that host I/O overlaps device compute.
+streams.  PNG and JPEG frames decode ahead of the consumer on the native
+runtime's C++ threads (``libviso_torch.native``), outside the
+interpreter lock; where this host cannot build that runtime, PIL
+(imported on first use) decodes on a read-ahead thread, with the same
+frames and the same order.  Either way host I/O overlaps device compute.
 """
 
 from __future__ import annotations
@@ -62,7 +65,22 @@ def kitti_sequence_paths(kitti_home: str, seq: str):
     }
 
 
+def _native():
+    """The native decode runtime, or None where this host cannot build
+    it (``native.unavailable_reason()``); a failed build raises."""
+    from libviso_torch import native
+
+    return native if native.available() else None
+
+
+_NATIVE_EXTS = (".png", ".jpg", ".jpeg")
+
+
 def _read_gray(path: str) -> np.ndarray:
+    if path.lower().endswith(_NATIVE_EXTS):
+        nat = _native()
+        if nat is not None:
+            return nat.decode_image_gray(path)
     from PIL import Image
 
     with Image.open(path) as im:
@@ -107,6 +125,14 @@ class StereoImageStream:
             yield _read_gray(left), _read_gray(right)
 
     def __iter__(self):
+        nat = _native() if self.prefetch > 0 else None
+        if nat is not None:
+            flat = [p for pair in self._paths() for p in pair]
+            if all(p.lower().endswith(_NATIVE_EXTS) for p in flat):
+                # one stream over the interleaved left/right list; zip of
+                # one iterator with itself pairs consecutive frames
+                frames = _native_stream(nat, flat, 2 * self.prefetch)
+                return zip(frames, frames)
         return _read_ahead(self._frames(), self.prefetch)
 
 
@@ -138,8 +164,22 @@ class MonoImageStream:
             i += 1
 
     def __iter__(self) -> Iterator[np.ndarray]:
+        nat = _native() if self.prefetch > 0 else None
+        if nat is not None:
+            paths = list(self._paths())
+            if all(p.lower().endswith(_NATIVE_EXTS) for p in paths):
+                return _native_stream(nat, paths, self.prefetch)
         return _read_ahead((_read_gray(p) for p in self._paths()),
                            self.prefetch)
+
+
+def _native_stream(nat, paths, depth: int):
+    """The frames of ``paths`` in order, decoded up to ``depth`` ahead on
+    the native runtime's threads; a decode error reaches the consumer."""
+    with nat.NativeImageStream(paths, threads=min(4, os.cpu_count() or 1),
+                               depth=depth) as stream:
+        for _ in paths:
+            yield stream.next()
 
 
 def _read_ahead(items, prefetch: int):

@@ -13,7 +13,9 @@ matcher equals the local one at (1280, 1280, 128) with k launches a
 problem, the 'l2q8' cross term equals the CPU's and the int64 product,
 the banded matcher equals the dense one on a KITTI-size frame up to
 distance ties, the landmark-sharded BA makes no host sync, and
-StreamPipeline on two CUDA streams equals the serial run.
+StreamPipeline on two CUDA streams equals the serial run; the profiling
+layer on the card: its peak row, its device clock, and profile_matcher
+through the L1 kernel.
 
 Every test is marked ``cuda`` and skips without a card.  The file imports
 no JAX, so it runs on a machine that has none; the suite's conftest.py
@@ -1002,3 +1004,24 @@ def test_staged_drivers_take_card_tensors():
     np.testing.assert_array_equal(motions, serial.motions)
     np.testing.assert_array_equal(ok, serial.frame_ok)
     np.testing.assert_array_equal(poses, serial.poses)
+
+
+def test_profiling_on_the_card():
+    """The profiling layer on the card: the peak table has the card's row,
+    the device clock reads one call's time, and profile_matcher under l1
+    goes through kernel #1 (warmup + reps) x chain times with every
+    utilization at most 1 (the cost model and the timer agree)."""
+    require_cuda()
+    from libviso_torch.utils import profiling
+
+    assert None not in profiling.device_peaks()
+    x = torch.ones((256, 256), device="cuda")
+    sec = profiling.time_call(torch.matmul, (x, x), reps=5)
+    assert 0 < sec < 0.05
+    before = cm.launches
+    st = profiling.profile_matcher(512, 384, 128, reps=4, chain=2)
+    assert cm.launches - before == (3 + 4) * 2
+    assert 0 < st.flop_util <= 1.0 and 0 < st.bw_util <= 1.0
+    before = cm.launches
+    profiling.profile_matcher(512, 384, 128, backend="plain", reps=2)
+    assert cm.launches == before

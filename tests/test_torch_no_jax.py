@@ -42,7 +42,9 @@ def test_package_has_sources():
             "pipeline/ba_loop.py", "parallel/__init__.py",
             "parallel/mesh.py", "parallel/distributed.py",
             "parallel/odometry.py", "parallel/tp_matching.py",
-            "parallel/pp_odometry.py", "parallel/ba_sharding.py"} <= names
+            "parallel/pp_odometry.py", "parallel/ba_sharding.py",
+            "utils/profiling.py", "native/__init__.py",
+            "native/build.py"} <= names
 
 
 @pytest.mark.parametrize("path", SOURCES,
