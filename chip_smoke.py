@@ -24,9 +24,12 @@ Phases, each of which exits non-zero on failure:
      problems of one stream and the 12 of four, and the fused kernels
      within rtol 1e-5 on float descriptors; every row where the sweep's
      idx differs from the dense route's is an exact distance tie; the
-     sweep route is two device launches by torch.profiler; kernels, plain
-     versions and the matcher routes are timed with CUDA events, in
-     turns;
+     sweep route is two device launches by torch.profiler, traced in a
+     fresh process (a kept CUPTI loses the first kernel records of a
+     session once other processes have started on the card, and this
+     one has started some; the trace raises where a record is lost);
+     kernels, plain versions and the matcher routes are timed with CUDA
+     events, in turns;
   8. serving: run_multistream on 4 KITTI-size streams (lengths 20, 20, 16,
      12) under metric l1 with each matcher backend: every stream's
      discrete per-frame stats equal its solo run on the card, fused equals
@@ -101,7 +104,8 @@ Phases, each of which exits non-zero on failure:
      every window accepted, its costs and ratios within rtol 1e-3 of
      JAX's, and the ATE within the bound of JAX's and below VO's; per
      window the front-end and refinement ms, and the refinement's device
-     kernels and stream syncs by torch.profiler;
+     kernels and stream syncs by torch.profiler, each window's
+     refinement traced again in a fresh process (as phase 7's);
  16. the kernels at the BA window's shapes, (8, 1280, 128) and (14, 1280,
      128): equal to their plain versions on integer descriptors and on the
      first window's stereo and temporal problems of phase 15, and timed
@@ -172,7 +176,18 @@ Phases, each of which exits non-zero on failure:
      byte-equal to PIL, StereoImageStream yields them in order, and the
      host ms a frame of the native stream and the PIL read-ahead are
      printed in turns with the host's CPU model; where it cannot build
-     (no png.h), one line says so.
+     (no png.h), one line says so;
+ 27. the bench (bench_torch.py) in this process at --reps=8 --window=8:
+     the default (l2, chunk 4), --chunk=1 --metric=l1 (kernel #1),
+     --streams=4 --metric=l1 --backend=fused (#2), --metric=l1
+     --backend=sweep (#3), --staged, --upload, --mono --reps=4 and
+     --profile: each prints one JSON line with bench.py's keys for its
+     mode, a finite positive value and vs_baseline = round(value /
+     baseline, 3), and launches its route's kernels once a frame step
+     (serving: a timestep), warm-up included, and no other kernel; then,
+     as the last act, after every trace, `python3 bench_torch.py
+     --reps=4` as a subprocess exits 0 with exactly one JSON line on
+     stdout.
 
 The line before the last is the kernel table as JSON: per kernel its
 launches on the main path, its time beside its bound (the larger of the
@@ -195,7 +210,8 @@ kernels phase 20 does not run), `chunk_launches` (phase 21 under the
 kernel's backend), `pp_launches` (phase 22's staged run) and
 `sharded_serve_launches` (phase 24 under the kernel's backend) and
 `profile_launches` (phase 25's l1 profile, kernel #1; null for the
-others), with
+others) and `bench_launches` (phase 27: per mode that reaches the
+kernel, its launches), with
 rows (`path` names them) at kernel #1's shard shape (1, 1280, 320, 128)
 with phase 20's launches at model = 4, at the profile's (1, 1280, 128)
 with phase 25's, at the chunk's shapes (6, 1280,
@@ -223,6 +239,7 @@ import time
 
 import numpy as np
 
+import bench_torch
 # tools/kernel_variants.py reads the timer as chip_smoke._time_ms
 from libviso_torch.utils.profiling import bound_ms, two_min_bound
 from libviso_torch.utils.profiling import device_ms as _time_ms
@@ -708,20 +725,59 @@ def _match_problems(seqs, S, integer):
         use_epi=torch.tensor([True, False, False], device="cuda").repeat(S))
 
 
-def device_launches(fn):
-    """The names of the device activities (kernels, copies, fills) of one
-    call of fn, by torch.profiler, after a call that warms it up."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+TRACE_DIR = os.path.join(ROOT, "build", "chip_smoke_trace")
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+def traced_in_fresh_process(label, calls):
+    """Per call (name, args, kwargs) of ``calls``, a function of
+    ``_traceable()`` by name, its device activities and counts by
+    torch.profiler (libviso_torch.utils.profiling's ``traced``, which
+    raises where the trace lost a kernel record), traced in a fresh
+    process: a kept CUPTI loses the first kernel records of a session
+    once other processes have started on the card (PERF.md §6, PR 10),
+    and this one has started some.  The calls travel by torch.save."""
+    import torch
+
+    os.makedirs(TRACE_DIR, exist_ok=True)
+    path = os.path.join(TRACE_DIR, f"{label}.pt")
+    torch.save(calls, path)
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         f"import chip_smoke; chip_smoke._trace_saved({path!r})"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    check(proc.returncode == 0, f"the {label} trace process exited "
+          f"{proc.returncode}:\n{proc.stderr[-2000:]}")
+    with open(path + ".json") as fh:
+        return json.load(fh)
+
+
+def _traceable():
+    from libviso_torch.ops import fused_matching as fm
+    from libviso_torch.pipeline import refine
+
+    return {"sorted_fused_two_min": fm.sorted_fused_two_min,
+            "refine_window_motions": refine.refine_window_motions}
+
+
+def _trace_saved(path):
+    """The fresh process of ``traced_in_fresh_process``: trace each call
+    saved at ``path`` and write, per call, its device activities and
+    ``device_counts`` to path + ".json"."""
+    import functools
+
+    import torch
+
+    from libviso_torch.utils import profiling as prof
+
+    fns = _traceable()
+    rows = []
+    for name, args, kwargs in torch.load(path, weights_only=False):
+        events = prof.traced(functools.partial(fns[name], *args, **kwargs),
+                             where=f"{name} ({path})")
+        rows.append({"activities": prof.device_activities(events),
+                     **prof.device_counts(events)})
+    with open(path + ".json", "w") as fh:
+        json.dump(rows, fh)
 
 
 def fused_kernel_phase(seqs):
@@ -740,7 +796,7 @@ def fused_kernel_phase(seqs):
     radius, thresh = 80.0, 1.0
     max_err = {"fused_gated_two_min": 0.0, "sweep_order": 0.0,
                "fused_sweep_two_min": 0.0}
-    times, counts = {}, {}
+    times, counts, route_calls = {}, {}, []
     for S in (1, 4):
         pb = _match_problems(seqs, S, integer=True)
         args = list(pb.values())
@@ -797,12 +853,10 @@ def fused_kernel_phase(seqs):
         pairs = int(fm.gate(*sides[:2], *sides[2:], pb["F"],
                             torch.zeros_like(pb["use_epi"]), thresh,
                             radius).sum())
-        names = device_launches(
-            lambda: fm.sorted_fused_two_min(*args, thresh, radius))
-        check(len(names) == 2, f"sorted_fused_two_min {shape}: "
-              f"{len(names)} device launches, not 2: {names}")
+        route_calls.append(("sorted_fused_two_min",
+                            (*args, thresh, radius), {}))
         counts[shape] = {"windows": live, "windows_unskipped": total,
-                         "pairs": pairs, "route_launches": len(names)}
+                         "pairs": pairs}
         print(f"[fused] {shape}: gated, sweep route, order kernel and "
               f"l1_distance_matrix == plain bitwise on detector output of "
               f"uint8 frames (integer descriptors); "
@@ -811,8 +865,7 @@ def fused_kernel_phase(seqs):
               f"window) pairs of {rows} rows x {W} columns in clusters of "
               f"{split} CTAs, of {total} without the skip, skip share "
               f"{1.0 - live / total:.4f}; {pairs} pairs pass the "
-              f"position and validity gates; the route is {len(names)} "
-              f"device launches by torch.profiler: {names}")
+              f"position and validity gates")
         # the float frames' detector output: sums in another order than
         # the plain version's, so best and second agree within rtol 1e-5
         # and idx wherever the two smallest are not within that of a tie
@@ -868,6 +921,14 @@ def fused_kernel_phase(seqs):
             f"{k} {mean[k]:.4f} ({v[0]:.4f}, {v[1]:.4f})"
             for k, v in ms.items()))
         times[shape] = mean
+    for (shape, c), row in zip(counts.items(), traced_in_fresh_process(
+            "sweep_route", route_calls)):
+        names = row["activities"]
+        check(len(names) == 2, f"sorted_fused_two_min {shape}: "
+              f"{len(names)} device launches, not 2: {names}")
+        c["route_launches"] = len(names)
+        print(f"[fused] {shape}: the sweep route is {len(names)} device "
+              f"launches by torch.profiler in a fresh process: {names}")
     return max_err, times, counts
 
 
@@ -2023,22 +2084,6 @@ def _window_draws(cfg):
                                                           shape))
 
 
-def _trace_counts(fn):
-    """(result, device kernels, stream syncs) of one call of fn, by
-    torch.profiler (tools/profile_torch_step.py reads the trace)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    from tools.profile_torch_step import device_counts, trace_events
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        out = fn()
-        torch.cuda.synchronize()
-    counts = device_counts(trace_events(prof))
-    return out, counts["kernel_launches"], counts["stream_syncs"]
-
-
 def ba_phase(seq):
     """Phase 15: run_windowed_ba on the phase-4 sequence, l1, windows of 8
     frames every 4, on the JAX package's window draws: under the gate with
@@ -2079,10 +2124,10 @@ def ba_phase(seq):
     try:
         for backend, gate in (("dense", True), ("fused", True),
                               ("sweep", True), ("dense", False)):
-            front_ms, refine_ms, counted = [], [], []
+            front_ms, refine_ms, saved = [], [], []
             # the per-window stages, timed: the front-end and the
-            # refinement; without the gate the refinement's launches and
-            # syncs are counted instead
+            # refinement; without the gate each window's refinement is
+            # saved, and its launches and syncs counted in a fresh process
             windowed.build_batched_odometry = lambda *a, **kw: timed(
                 real_build(*a, **kw), front_ms)
             if gate:
@@ -2090,9 +2135,8 @@ def ba_phase(seq):
                                                        refine_ms)
             else:
                 def refine(*a, **kw):
-                    out, k, n = _trace_counts(lambda: real_refine(*a, **kw))
-                    counted.append((k, n))
-                    return out
+                    saved.append(("refine_window_motions", a, kw))
+                    return real_refine(*a, **kw)
                 windowed.refine_window_motions = refine
             reset_launches()
             # the first window's problems, and each call's launches
@@ -2103,6 +2147,9 @@ def ba_phase(seq):
                     device="cuda", draws=draws)
             problems = problems or seen
             counts = read_launches()
+            if not gate:
+                counted = [(r["kernel_launches"], r["stream_syncs"]) for r
+                           in traced_in_fresh_process("ba_refine", saved)]
             n_win = len(res.window_costs)
             ref = JAX_BA[gate]
             solved = int(res.frame_ok.sum())
@@ -2164,7 +2211,8 @@ def ba_phase(seq):
                   + (f", refinement {[round(x, 3) for x in refine_ms]}"
                      if gate else
                      f"; the refinement's device kernels and stream syncs "
-                     f"per window (torch.profiler): {counted}"))
+                     f"per window (torch.profiler, in a fresh process): "
+                     f"{counted}"))
     finally:
         windowed.build_batched_odometry = real_build
         windowed.refine_window_motions = real_refine
@@ -3179,6 +3227,106 @@ def native_phase(seq):
           f"{ms['PIL']}; {os.cpu_count()} cores of {_cpu_model()}")
 
 
+# phase 27: bench_torch.py's modes at --reps=8 --window=8, each with the
+# kernels its route launches (l2, the default, and mono's l2 launch none)
+BENCH_ARGS = ("--reps=8", "--window=8")
+BENCH_MODES = (
+    ((), ()),
+    (("--chunk=1", "--metric=l1"), ("l1_distance_matrix",)),
+    (("--streams=4", "--metric=l1", "--backend=fused"),
+     ("fused_gated_two_min",)),
+    (("--metric=l1", "--backend=sweep"),
+     ("sweep_order", "fused_sweep_two_min")),
+    (("--staged",), ()),
+    (("--upload",), ()),
+    (("--mono", "--reps=4"), ()),
+    (("--profile",), ()))
+BENCH_KEYS = ["metric", "value", "unit", "vs_baseline"]
+BENCH_STREAM_KEYS = BENCH_KEYS + ["value_best_window", "mode"]
+
+
+def _bench_steps(args):
+    """The frame steps (serving: timesteps) one run of bench_torch's args
+    makes, warm-up included: one launch each of its route's kernels."""
+    W, reps, K = bench_torch.WINDOWS, args.reps, args.chunk
+    if args.streams > 1:
+        K = max(1, K)
+        return (bench_torch.WARMUP_STEPS + W * max(1, reps // K)) * K
+    if K > 1:
+        return (1 + W * max(1, reps // K)) * K
+    return bench_torch.WARMUP_STEPS + W * reps
+
+
+def check_bench_line(line, args):
+    """bench.py's keys for the mode, a finite positive value, and
+    vs_baseline the value over the mode's baseline, rounded to 3."""
+    streaming = args.mono or not (args.staged or args.upload)
+    keys = BENCH_STREAM_KEYS if streaming else BENCH_KEYS
+    check(list(line) == keys, f"bench line keys {list(line)}, not {keys}")
+    metric, base = (
+        ("mono_sfm_fps", bench_torch.MONO_BASELINE_FPS) if args.mono
+        else ("stereo_vo_fps", bench_torch.BASELINE_FPS))
+    check(line["metric"] == metric and line["unit"] == "frames/s",
+          f"bench line {line}: not {metric} in frames/s")
+    check(math.isfinite(line["value"]) and line["value"] > 0,
+          f"bench value {line['value']}")
+    check(line["vs_baseline"] == round(line["value"] / base, 3),
+          f"bench vs_baseline {line['vs_baseline']} != round("
+          f"{line['value']} / {base}, 3)")
+
+
+def bench_phase():
+    """Phase 27: bench_torch.main in this process in each of BENCH_MODES;
+    returns, per kernel, its launches in the modes that reach it."""
+    import io
+
+    launches = {k: {} for k in KERNELS}
+    for mode, kernels in BENCH_MODES:
+        argv = [*BENCH_ARGS, *mode]
+        args = bench_torch.parse_args(argv)
+        out = io.StringIO()
+        reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            line = bench_torch.main(argv)
+        wall = time.perf_counter() - t0
+        counts = read_launches()
+        printed = out.getvalue().splitlines()
+        check(len(printed) == 1 and json.loads(printed[0]) == line,
+              f"bench_torch {' '.join(argv)} printed {printed!r}")
+        check_bench_line(line, args)
+        steps = _bench_steps(args)
+        for name in KERNELS:
+            want = steps if name in kernels else 0
+            check(counts[name] == want, f"bench_torch {' '.join(argv)}: "
+                  f"{name} launched {counts[name]} times, not {want}")
+            if want:
+                launches[name][" ".join(mode)] = counts[name]
+        print(f"[bench] {' '.join(argv)} ({wall:.1f} s; "
+              + (", ".join(f"{k} {counts[k]} launches" for k in kernels)
+                 or "no kernel launched") + f"): {printed[0]}")
+    return launches
+
+
+def bench_cli_phase():
+    """The smoke's last act, after every trace: `python3 bench_torch.py
+    --reps=4` exits 0 with exactly one JSON line on stdout."""
+    cmd = [sys.executable, "bench_torch.py", "--reps=4"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=600)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"{' '.join(cmd[1:])} exited "
+          f"{proc.returncode}:\n{proc.stderr[-2000:]}")
+    printed = proc.stdout.splitlines()
+    check(len(printed) == 1, f"{' '.join(cmd[1:])} printed {printed!r}")
+    line = json.loads(printed[0])
+    check_bench_line(line, bench_torch.parse_args(cmd[2:]))
+    check(line["mode"] == "streaming_chunk4", f"bench mode {line['mode']}")
+    print(f"[bench-cli] {' '.join(cmd[1:])} ({wall:.1f} s with start-up; "
+          f"stderr {proc.stderr.strip().splitlines()[0]!r}): {printed[0]}")
+
+
 def kernels_line(launches, l1_err, l1_times, serve_launches, fused_err,
                  fused_times, counts):
     """The kernel table: per kernel its main-path launches and, at the
@@ -3304,6 +3452,8 @@ def main():
                                                 entry_problems, 40)
     profile_launches, profile_row = profiling_phase(kernel_names)
     native_phase(seq)
+    bench_launches = bench_phase()
+    bench_cli_phase()
 
     line = kernels_line(launches, l1_err, l1_times, serve_launches,
                         fused_err, fused_times, counts)
@@ -3336,6 +3486,7 @@ def main():
         k["sharded_serve_launches"] = sharded_serve_launches[kernel]
         k["profile_launches"] = {
             "l1_distance_matrix": profile_launches}.get(kernel)
+        k["bench_launches"] = bench_launches[kernel]
         if kernel == "l1_distance_matrix":
             k["shapes"].append({"shape": list(SHARD_SHAPE), **shard_row})
             k["shapes"].append({"shape": list(PROFILE_SHAPE), **profile_row})

@@ -15,7 +15,7 @@ the banded matcher equals the dense one on a KITTI-size frame up to
 distance ties, the landmark-sharded BA makes no host sync, and
 StreamPipeline on two CUDA streams equals the serial run; the profiling
 layer on the card: its peak row, its device clock, and profile_matcher
-through the L1 kernel.
+through the L1 kernel; and bench_torch.py's default mode on the card.
 
 Every test is marked ``cuda`` and skips without a card.  The file imports
 no JAX, so it runs on a machine that has none; the suite's conftest.py
@@ -34,6 +34,8 @@ output and within atol 1e-4 on the motions.  The problem count 46 is a
 """
 
 import dataclasses
+import json
+import math
 
 import numpy as np
 import pytest
@@ -301,26 +303,22 @@ def test_sweep_tie_across_target_splits_goes_to_lowest_sorted_column():
 def test_sweep_route_is_two_device_launches():
     """One sorted_fused_two_min call on CUDA tensors runs exactly two
     device activities, the order kernel and the sweep kernel, by
-    torch.profiler; the counts of both wrappers rise by one."""
+    torch.profiler through the checked reader (``profiling.traced``, a
+    warm-up call and a traced one); the counts of both wrappers rise by
+    one a call."""
     require_cuda()
-    from torch.profiler import ProfilerActivity, profile
+    from libviso_torch.utils import profiling
 
     args = _match_problem(3, 1280, 1280, 128)
-    fm.sorted_fused_two_min(*args, 1.0, 80.0)      # build and load first
-    torch.cuda.synchronize()
     before = dict(fm.launches)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fm.sorted_fused_two_min(*args, 1.0, 80.0)
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
+    names = profiling.device_activities(profiling.traced(
+        lambda: fm.sorted_fused_two_min(*args, 1.0, 80.0)))
     assert len(names) == 2, names
     assert any("sweep_order" in n for n in names)
     assert any("fused_sweep" in n for n in names)
-    assert fm.launches["sweep_order"] == before["sweep_order"] + 1
+    assert fm.launches["sweep_order"] == before["sweep_order"] + 2
     assert fm.launches["fused_sweep_two_min"] == \
-        before["fused_sweep_two_min"] + 1
+        before["fused_sweep_two_min"] + 2
 
 
 def test_sweep_raises_on_a_refused_launch():
@@ -1025,3 +1023,21 @@ def test_profiling_on_the_card():
     before = cm.launches
     profiling.profile_matcher(512, 384, 128, backend="plain", reps=2)
     assert cm.launches == before
+
+
+def test_bench_default_mode_on_the_card(capsys):
+    """bench_torch.py's default mode (chunked streaming, metric l2, 4
+    frames a call) at --reps=2 on the card: exactly one JSON line on
+    stdout, with bench.py's keys and a finite positive rate."""
+    require_cuda()
+    import bench_torch
+
+    line = bench_torch.main(["--reps=2"])
+    assert capsys.readouterr().out.splitlines() == [json.dumps(line)]
+    assert list(line) == ["metric", "value", "unit", "vs_baseline",
+                          "value_best_window", "mode"]
+    assert line["metric"] == "stereo_vo_fps"
+    assert line["mode"] == "streaming_chunk4"
+    assert math.isfinite(line["value"]) and line["value"] > 0
+    assert line["vs_baseline"] == round(
+        line["value"] / bench_torch.BASELINE_FPS, 3)

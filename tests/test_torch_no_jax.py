@@ -58,9 +58,21 @@ def test_no_jax_import(path):
 @pytest.mark.parametrize("name", ["chip_smoke.py",
                                   "tests/test_torch_cuda.py",
                                   "tools/soak_torch.py",
-                                  "tools/threefry.py"])
+                                  "tools/threefry.py", "bench_torch.py",
+                                  "tools/profile_torch_step.py",
+                                  "tools/route_launches.py"])
 def test_card_side_scripts_import_no_jax(name):
     """What runs on the card's machine, which has no JAX."""
     bad = [m for m in _imported_modules(PKG.parent / name)
            if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{name} imports {bad}"
+
+
+def test_bench_torch_imports_only_the_port():
+    """bench_torch.py keeps its own copy of bench.py's baselines: it
+    imports neither bench.py nor JAX, and of this repository only
+    libviso_torch."""
+    mods = {m.split(".")[0]
+            for m in _imported_modules(PKG.parent / "bench_torch.py")}
+    assert not mods & {*FORBIDDEN, "bench", "tools", "tests"}, mods
+    assert "libviso_torch" in mods

@@ -44,7 +44,9 @@ solver) on the left frames of that sequence, K = P1[:, :3]:
      pose recovery + refinement + scale), a sync after each stage;
   3. a torch.profiler trace of frames 10-14 under l2 dense and l1 fused.
 
-Everything is printed; ``--out`` also writes it as JSON.
+Every trace is read by ``libviso_torch.utils.profiling.trace_events``,
+which raises where the profiler lost a kernel record.  Everything is
+printed; ``--out`` also writes it as JSON.
 """
 
 import argparse
@@ -54,7 +56,6 @@ import os
 import statistics
 import subprocess
 import sys
-import tempfile
 import time
 
 import numpy as np
@@ -79,6 +80,10 @@ from libviso_torch.solvers.ransac import (  # noqa: E402
     sample_gumbel,
 )
 from libviso_torch.synthetic import generate_sequence  # noqa: E402
+from libviso_torch.utils.profiling import (  # noqa: E402
+    device_counts,
+    trace_events,
+)
 
 KITTI_SEQUENCE = dict(num_frames=20, num_points=900, seed=0, width=1241,
                       height=376, f=718.856, base=0.5371657, speed=0.8)
@@ -173,30 +178,6 @@ def _busy_us(intervals):
             total += b - max(a, end)
             end = b
     return total
-
-
-def trace_events(prof):
-    """The complete ("X") events of a finished torch.profiler run, read
-    from its exported chrome trace."""
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as fh:
-            events = json.load(fh)["traceEvents"]
-    return [e for e in events if e.get("ph") == "X"]
-
-
-def device_counts(events):
-    """Device kernels, stream and device syncs and host-to-device copies
-    among a trace's events (trace_events)."""
-    runtime = [e["name"] for e in events
-               if e.get("cat") in ("cuda_runtime", "cuda_driver")]
-    return {
-        "kernel_launches": sum(e.get("cat") == "kernel" for e in events),
-        "stream_syncs": runtime.count("cudaStreamSynchronize"),
-        "device_syncs": runtime.count("cudaDeviceSynchronize"),
-        "h2d_copies": sum(e.get("cat") == "gpu_memcpy"
-                          and "HtoD" in e["name"] for e in events)}
 
 
 def profile_frames(seq, metric, device, run=None):
